@@ -1,0 +1,117 @@
+"""Voltron ViT token encoder (port of `mdt_policy_tpu/models/voltron_vit.py`):
+RMSNorm + SwishGLU + LayerScale blocks over 16-px patches with a fixed 2-D
+sin-cos position table, returning the full patch-token grid, e.g.
+(B, 196, 384) for ViT-S/16 at 224 px. Attention runs kernel B1
+(`ops/fused_qkv_attention.py`) straight off the packed qkv projection.
+
+Key layout is Voltron's own (`patch2embed.proj`, `blocks.{i}`,
+`encoder_norm`), the one `port_voltron_vit` of the JAX package reads.
+Images are NHWC, as in the JAX package. The frozen tower holds bf16 weights
+and computes in bf16; its final LayerNorm has eps 1e-6.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..ops.fused_qkv_attention import fused_qkv_attention
+from .blocks import LayerNorm, RMSNorm, SwishGLU
+
+__all__ = ["get_2d_sincos_pos_embed", "PatchEmbed", "LayerScale",
+           "VoltronBlock", "VoltronViT"]
+
+
+def _get_1d_sincos(dim: int, pos: np.ndarray) -> np.ndarray:
+    omega = np.arange(dim // 2, dtype=np.float32) / (dim / 2.0)
+    omega = 1.0 / (10000 ** omega)
+    out = np.einsum("m,d->md", pos.reshape(-1), omega)
+    return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+
+def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int) -> np.ndarray:
+    """MAE-style 2-D sin-cos table, (grid_size**2, embed_dim) float32. The
+    meshgrid is built (grid_w, grid_h), in that order, as in the JAX package."""
+    grid_h = np.arange(grid_size, dtype=np.float32)
+    grid_w = np.arange(grid_size, dtype=np.float32)
+    grid = np.stack(np.meshgrid(grid_w, grid_h), axis=0).reshape(2, 1, grid_size, grid_size)
+    emb_h = _get_1d_sincos(embed_dim // 2, grid[0])
+    emb_w = _get_1d_sincos(embed_dim // 2, grid[1])
+    pos_embed = np.concatenate([emb_h, emb_w], axis=1)
+    return pos_embed.astype(np.float32)
+
+
+class PatchEmbed(nn.Module):
+    """Conv patchifier: NHWC images -> (B, n_patches, embed_dim), patches
+    in row-major (h, w) order."""
+
+    def __init__(self, patch_size: int, embed_dim: int, in_chans: int = 3):
+        super().__init__()
+        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride=patch_size)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        x = self.proj(images.permute(0, 3, 1, 2))  # (B, d, h, w)
+        return x.flatten(2).transpose(1, 2)
+
+
+class LayerScale(nn.Module):
+    def __init__(self, dim: int, init_value: float = 0.1):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((dim,), init_value))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.gamma
+
+
+class _ViTAttention(nn.Module):
+    """Fused-qkv multi-head attention through kernel B1."""
+
+    def __init__(self, dim: int, n_heads: int):
+        super().__init__()
+        self.n_heads = n_heads
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.proj(fused_qkv_attention(self.qkv(x), self.n_heads))
+
+
+class VoltronBlock(nn.Module):
+    """x + ls1(attn(norm1(x))); x + ls2(mlp(norm2(x))), MLP ratio 4."""
+
+    def __init__(self, dim: int, n_heads: int):
+        super().__init__()
+        hidden = 4 * dim
+        self.norm1 = RMSNorm(dim)
+        self.attn = _ViTAttention(dim, n_heads)
+        self.ls1 = LayerScale(dim)
+        self.norm2 = RMSNorm(dim)
+        self.mlp = nn.Sequential(SwishGLU(dim, hidden), nn.Linear(hidden, dim))
+        self.ls2 = LayerScale(dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.ls1(self.attn(self.norm1(x)))
+        return x + self.ls2(self.mlp(self.norm2(x)))
+
+
+class VoltronViT(nn.Module):
+
+    def __init__(self, patch_size: int = 16, embed_dim: int = 384,
+                 depth: int = 12, n_heads: int = 6, img_size: int = 224):
+        super().__init__()
+        self.patch2embed = PatchEmbed(patch_size, embed_dim)
+        self.blocks = nn.ModuleList(VoltronBlock(embed_dim, n_heads)
+                                    for _ in range(depth))
+        self.encoder_norm = LayerNorm(embed_dim, eps=1e-6)
+        pe = get_2d_sincos_pos_embed(embed_dim, img_size // patch_size)
+        self.register_buffer("pos_embed", torch.from_numpy(pe), persistent=False)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """images (B, H, W, 3) -> tokens (B, n_patches, embed_dim), in the
+        dtype of the images (which must match the weights')."""
+        x = self.patch2embed(images)
+        x = x + self.pos_embed.to(x.dtype)[None]
+        for block in self.blocks:
+            x = block(x)
+        return self.encoder_norm(x)

@@ -1,0 +1,37 @@
+"""Scaled-dot-product attention for the denoiser and the perceiver's plain
+path: tiny sequences, plain PyTorch (the JAX package leaves this to XLA
+einsums, `mdt_policy_tpu/ops/attention.py::sdpa`).
+
+Same contract as there: softmax statistics in float32 whatever the input
+dtype; for bf16/fp16 inputs the scores are formed in the input dtype (as the
+JAX version does) and the probabilities are cast back to it before P.V.
+Inference only: no attention dropout.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["sdpa"]
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool = False, layout: str = "bhtd") -> torch.Tensor:
+    """Attention over (B, H, T, D) tensors (layout "bhtd") or (B, T, H, D)
+    tensors (layout "bthd"). `causal` keeps key j for query i when j <= i
+    (a lower-triangular (Tq, Tk) mask, as the JAX version)."""
+    if layout == "bthd":
+        q, k, v = (t.transpose(-3, -2) for t in (q, k, v))
+    q_len, k_len, head_dim = q.shape[-2], k.shape[-2], q.shape[-1]
+    scale = head_dim ** -0.5
+    scores = torch.matmul(q, k.transpose(-1, -2))
+    if q.dtype in (torch.bfloat16, torch.float16):
+        scores = scores * torch.tensor(scale, dtype=q.dtype)
+    else:
+        scores = scores.float() * scale
+    if causal:
+        keep = torch.ones(q_len, k_len, dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~keep, torch.finfo(scores.dtype).min)
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    out = torch.matmul(probs, v)
+    return out.transpose(-3, -2) if layout == "bthd" else out
