@@ -16,6 +16,7 @@ custom VJP, goes through the plain version; the frozen towers never need it.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -63,6 +64,7 @@ def _check(qkv: torch.Tensor, n_heads: int) -> None:
         raise ValueError("fused_qkv_attention: qkv must be contiguous")
 
 
+@functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load_library("fused_qkv_attention")
     lib.mdt_fused_qkv_attention.argtypes = [

@@ -86,3 +86,27 @@ def test_cuda_kernel_matches_plain(causal, dtype, tol):
     torch.cuda.synchronize()
     assert fused_qkv_attention.launches == before + 1
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_cuda_kernel_matches_float64_attention(causal):
+    """The f32 kernel against attention computed in float64 on the card, an
+    oracle that shares no summation order with the kernel (kernel and plain
+    version agree bit for bit at these shapes). Tolerance: f32 rounding of
+    scores, probabilities and a 197-term sum, ~1e-6 on outputs below 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    B, T, C, H = 3, 197, 384, 6
+    gen = torch.Generator("cuda").manual_seed(1)
+    qkv = torch.randn((B, T, 3 * C), generator=gen, device="cuda")
+    q, k, v = (t.double().reshape(B, T, H, C // H).transpose(1, 2)
+               for t in qkv.split(C, dim=-1))
+    scores = q @ k.transpose(-1, -2) * (C // H) ** -0.5
+    if causal:
+        keep = torch.ones(T, T, dtype=torch.bool, device="cuda").tril()
+        scores = scores.masked_fill(~keep, float("-inf"))
+    ref = (scores.softmax(-1) @ v).transpose(1, 2).reshape(B, T, C)
+    out = fused_qkv_attention(qkv, H, causal)
+    torch.cuda.synchronize()
+    assert (out.double() - ref).abs().max().item() <= 1e-5
