@@ -1,8 +1,12 @@
 """Networks of the port."""
 
-from .clip import CLIPTextTower
+from .blocks import ClipStyleProjection
+from .clip import CLIPTextTower, CLIPVisionTower
+from .masked_decoder import MaskedTransformerImgDecoder
 from .mdtv_transformer import MDTVTransformer
 from .perceiver import PerceiverResampler
 from .voltron_vit import VoltronViT
 
-__all__ = ["CLIPTextTower", "MDTVTransformer", "PerceiverResampler", "VoltronViT"]
+__all__ = ["ClipStyleProjection", "CLIPTextTower", "CLIPVisionTower",
+           "MaskedTransformerImgDecoder", "MDTVTransformer",
+           "PerceiverResampler", "VoltronViT"]

@@ -1,8 +1,14 @@
-"""CLIP text tower (port of `mdt_policy_tpu/models/clip.py::CLIPTextTower`):
-pre-LN transformer with QuickGELU and packed-qkv causal attention through
-kernel B1, pooled at the EOT token (the largest token id). OpenAI's
-`state_dict` layout (`transformer.resblocks.{i}.attn.in_proj_weight`, ...),
-the one `port_clip_text` of the JAX package reads. LayerNorm eps is 1e-5.
+"""CLIP towers (port of `mdt_policy_tpu/models/clip.py`): pre-LN
+transformers with QuickGELU and packed-qkv attention through kernel B1, every
+LayerNorm (eps 1e-5) through kernel B3.
+
+* `CLIPTextTower`: causal, pooled at the EOT token (the largest token id).
+* `CLIPVisionTower`: ViT over NHWC images, a bias-free conv patchifier, a
+  class token, `ln_post` on the class token and `@ proj`.
+
+OpenAI's `state_dict` layout (`transformer.resblocks.{i}.attn.in_proj_weight`,
+`conv1.weight`, `class_embedding`, ...), the one `port_clip_text` and
+`port_clip_vision` (without the `visual.` prefix) of the JAX package read.
 """
 
 from __future__ import annotations
@@ -12,9 +18,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.fused_qkv_attention import fused_qkv_attention
-from .blocks import LayerNorm
+from .blocks import TowerLayerNorm
 
-__all__ = ["quick_gelu", "ResidualAttentionBlock", "CLIPTextTower"]
+__all__ = ["quick_gelu", "ResidualAttentionBlock", "CLIPTextTower",
+           "CLIPVisionTower"]
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -51,9 +58,9 @@ class _MLP(nn.Module):
 class ResidualAttentionBlock(nn.Module):
     def __init__(self, width: int, heads: int, causal: bool = False):
         super().__init__()
-        self.ln_1 = LayerNorm(width, eps=1e-5)
+        self.ln_1 = TowerLayerNorm(width, eps=1e-5)
         self.attn = _PackedAttention(width, heads, causal)
-        self.ln_2 = LayerNorm(width, eps=1e-5)
+        self.ln_2 = TowerLayerNorm(width, eps=1e-5)
         self.mlp = _MLP(width)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -83,7 +90,7 @@ class CLIPTextTower(nn.Module):
         self.token_embedding = nn.Embedding(vocab_size, width)
         self.positional_embedding = nn.Parameter(torch.zeros(context_length, width))
         self.transformer = _Transformer(width, layers, heads, causal=True)
-        self.ln_final = LayerNorm(width, eps=1e-5)
+        self.ln_final = TowerLayerNorm(width, eps=1e-5)
         self.text_projection = nn.Parameter(torch.zeros(width, embed_dim))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -92,3 +99,28 @@ class CLIPTextTower(nn.Module):
         eot = tokens.argmax(dim=-1)  # first occurrence of the largest id
         pooled = x[torch.arange(x.shape[0], device=x.device), eot]
         return pooled @ self.text_projection
+
+
+class CLIPVisionTower(nn.Module):
+    """images (B, H, W, 3), CLIP-normalized -> (B, embed_dim), in the
+    weights' dtype (JAX clip.py:188-223). Heads: width // 64."""
+
+    def __init__(self, embed_dim: int = 512, image_resolution: int = 224,
+                 layers: int = 12, width: int = 768, patch_size: int = 16):
+        super().__init__()
+        n_pos = (image_resolution // patch_size) ** 2 + 1
+        self.conv1 = nn.Conv2d(3, width, patch_size, stride=patch_size, bias=False)
+        self.class_embedding = nn.Parameter(torch.zeros(width))
+        self.positional_embedding = nn.Parameter(torch.zeros(n_pos, width))
+        self.ln_pre = TowerLayerNorm(width, eps=1e-5)
+        self.transformer = _Transformer(width, layers, max(width // 64, 1),
+                                        causal=False)
+        self.ln_post = TowerLayerNorm(width, eps=1e-5)
+        self.proj = nn.Parameter(torch.zeros(width, embed_dim))
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        x = self.conv1(images.permute(0, 3, 1, 2)).flatten(2).transpose(1, 2)
+        cls = self.class_embedding.expand(x.shape[0], 1, -1)
+        x = torch.cat([cls, x], dim=1) + self.positional_embedding[None]
+        x = self.transformer(self.ln_pre(x))
+        return self.ln_post(x[:, 0]) @ self.proj

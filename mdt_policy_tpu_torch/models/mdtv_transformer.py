@@ -9,12 +9,13 @@
 `encode` and `decode` are separate so the sampler computes the context once
 per replan. Only the production layout is ported: AdaLN decoder, MLP goal
 projections and a separate language-goal projection (`lang_emb`); the agent
-rejects other configs (ROADMAP queue A item 18).
+rejects other configs (ROADMAP queue A item 18). Dropout (`attn_pdrop`,
+`resid_pdrop`, `mlp_pdrop`) runs when `encode`/`decode` get a generator.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -42,7 +43,8 @@ class MDTVTransformer(nn.Module):
                  n_dec_layers: int = 4, n_heads: int = 8,
                  goal_seq_len: int = 1, obs_seq_len: int = 1,
                  n_obs_token: int = 3, action_seq_len: int = 10,
-                 use_proprio: bool = False):
+                 use_proprio: bool = False, attn_pdrop: float = 0.0,
+                 resid_pdrop: float = 0.0, mlp_pdrop: float = 0.0):
         super().__init__()
         self.obs_dim, self.goal_seq_len = obs_dim, goal_seq_len
         self.tok_emb = nn.Linear(obs_dim, embed_dim)
@@ -56,8 +58,9 @@ class MDTVTransformer(nn.Module):
             if use_proprio else None
         self.sigma_emb = SigmaEmbedding(embed_dim)
         self.action_emb = nn.Linear(action_dim, embed_dim)
-        self.encoder = TransformerEncoder(embed_dim, n_heads, n_enc_layers)
-        self.decoder = TransformerFiLMDecoder(embed_dim, n_heads, n_dec_layers)
+        drops = (attn_pdrop, resid_pdrop, mlp_pdrop)
+        self.encoder = TransformerEncoder(embed_dim, n_heads, n_enc_layers, *drops)
+        self.decoder = TransformerFiLMDecoder(embed_dim, n_heads, n_dec_layers, *drops)
         self.action_pred = nn.Linear(embed_dim, action_dim)
 
     def _sigma_token(self, sigma: torch.Tensor, batch: int) -> torch.Tensor:
@@ -79,7 +82,8 @@ class MDTVTransformer(nn.Module):
         return goals
 
     def encode(self, states: Dict[str, torch.Tensor], goals: torch.Tensor,
-               *, modality: str = "vis") -> torch.Tensor:
+               *, modality: str = "vis",
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Encoder context (ref forward_enc_only). Under AdaLN the encoder
         does not see sigma."""
         state_images = states["state_images"]
@@ -91,12 +95,13 @@ class MDTVTransformer(nn.Module):
         parts = [goal_embed, self.tok_emb(state_images)]
         if "state_obs" in states:
             parts.append(self.proprio_emb(states["state_obs"]))
-        return self.encoder(torch.cat(parts, dim=1))
+        return self.encoder(torch.cat(parts, dim=1), generator)
 
     def decode(self, context: torch.Tensor, actions: torch.Tensor,
-               sigma: torch.Tensor) -> torch.Tensor:
+               sigma: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Decoder pass over (scaled) noised action tokens (ref
         forward_dec_only)."""
         emb_t = self._sigma_token(sigma, actions.shape[0])
-        x = self.decoder(self.action_emb(actions), emb_t, context)
+        x = self.decoder(self.action_emb(actions), emb_t, context, generator)
         return self.action_pred(x)

@@ -1,8 +1,11 @@
 """Voltron ViT token encoder (port of `mdt_policy_tpu/models/voltron_vit.py`):
 RMSNorm + SwishGLU + LayerScale blocks over 16-px patches with a fixed 2-D
 sin-cos position table, returning the full patch-token grid, e.g.
-(B, 196, 384) for ViT-S/16 at 224 px. Attention runs kernel B1
-(`ops/fused_qkv_attention.py`) straight off the packed qkv projection.
+(B, 196, 384) for ViT-S/16 at 224 px. In the tower, attention runs kernel B1
+(`ops/fused_qkv_attention.py`) straight off the packed qkv projection and
+every norm runs kernel B3 (`ops/fused_norm.py`). The foresight decoder
+builds its blocks with `fused_kernel=False` and a compute `dtype`, as the
+JAX decoder does: plain `sdpa` attention, f32 master weights cast to bf16.
 
 Key layout is Voltron's own (`patch2embed.proj`, `blocks.{i}`,
 `encoder_norm`), the one `port_voltron_vit` of the JAX package reads.
@@ -12,12 +15,16 @@ and computes in bf16; its final LayerNorm has eps 1e-6.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
+from ..ops.attention import sdpa
 from ..ops.fused_qkv_attention import fused_qkv_attention
-from .blocks import LayerNorm, RMSNorm, SwishGLU
+from .blocks import RMSNorm, SwishGLU, TowerLayerNorm, dense
 
 __all__ = ["get_2d_sincos_pos_embed", "PatchEmbed", "LayerScale",
            "VoltronBlock", "VoltronViT"]
@@ -44,55 +51,82 @@ def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int) -> np.ndarray:
 
 class PatchEmbed(nn.Module):
     """Conv patchifier: NHWC images -> (B, n_patches, embed_dim), patches
-    in row-major (h, w) order."""
+    in row-major (h, w) order; with `dtype`, images and weights are cast to
+    it first (flax `Conv(dtype=...)`)."""
 
-    def __init__(self, patch_size: int, embed_dim: int, in_chans: int = 3):
+    def __init__(self, patch_size: int, embed_dim: int, in_chans: int = 3,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride=patch_size)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        x = self.proj(images.permute(0, 3, 1, 2))  # (B, d, h, w)
+        x = images.permute(0, 3, 1, 2)
+        if self.dtype is None:
+            x = self.proj(x)  # (B, d, h, w)
+        else:
+            dt, p = self.dtype, self.proj
+            x = F.conv2d(x.to(dt), p.weight.to(dt), p.bias.to(dt), stride=p.stride)
         return x.flatten(2).transpose(1, 2)
 
 
 class LayerScale(nn.Module):
-    def __init__(self, dim: int, init_value: float = 0.1):
+    def __init__(self, dim: int, init_value: float = 0.1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.gamma = nn.Parameter(torch.full((dim,), init_value))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.gamma
+        return x * (self.gamma if self.dtype is None else self.gamma.to(self.dtype))
 
 
 class _ViTAttention(nn.Module):
-    """Fused-qkv multi-head attention through kernel B1."""
+    """Fused-qkv multi-head attention: kernel B1 off the packed projection,
+    or (`fused_kernel=False`) plain `sdpa` on its head-interleaved views."""
 
-    def __init__(self, dim: int, n_heads: int):
+    def __init__(self, dim: int, n_heads: int, fused_kernel: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.n_heads = n_heads
+        self.n_heads, self.fused_kernel, self.dtype = n_heads, fused_kernel, dtype
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.proj(fused_qkv_attention(self.qkv(x), self.n_heads))
+        dt = self.dtype or x.dtype
+        qkv = dense(x, self.qkv, dt)
+        if self.fused_kernel:
+            y = fused_qkv_attention(qkv, self.n_heads)
+        else:
+            B, T, C3 = qkv.shape
+            q, k, v = (t.reshape(B, T, self.n_heads, -1) for t in qkv.chunk(3, dim=-1))
+            y = sdpa(q, k, v, layout="bthd").reshape(B, T, C3 // 3)
+        return dense(y, self.proj, dt)
 
 
 class VoltronBlock(nn.Module):
-    """x + ls1(attn(norm1(x))); x + ls2(mlp(norm2(x))), MLP ratio 4."""
+    """x + ls1(attn(norm1(x))); x + ls2(mlp(norm2(x))), MLP ratio 4.
 
-    def __init__(self, dim: int, n_heads: int):
+    `fused_kernel` is the JAX block's attribute of the same name (B1 or
+    plain attention); `dtype` is its computation dtype (None: the weights')."""
+
+    def __init__(self, dim: int, n_heads: int, *, fused_kernel: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         hidden = 4 * dim
-        self.norm1 = RMSNorm(dim)
-        self.attn = _ViTAttention(dim, n_heads)
-        self.ls1 = LayerScale(dim)
-        self.norm2 = RMSNorm(dim)
-        self.mlp = nn.Sequential(SwishGLU(dim, hidden), nn.Linear(hidden, dim))
-        self.ls2 = LayerScale(dim)
+        self.dtype = dtype
+        self.norm1 = RMSNorm(dim, dtype=dtype)
+        self.attn = _ViTAttention(dim, n_heads, fused_kernel, dtype)
+        self.ls1 = LayerScale(dim, dtype=dtype)
+        self.norm2 = RMSNorm(dim, dtype=dtype)
+        self.mlp = nn.Sequential(SwishGLU(dim, hidden, dtype), nn.Linear(hidden, dim))
+        self.ls2 = LayerScale(dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.ls1(self.attn(self.norm1(x)))
-        return x + self.ls2(self.mlp(self.norm2(x)))
+        glu, out = self.mlp
+        h = glu(self.norm2(x))
+        return x + self.ls2(dense(h, out, self.dtype or h.dtype))
 
 
 class VoltronViT(nn.Module):
@@ -103,7 +137,7 @@ class VoltronViT(nn.Module):
         self.patch2embed = PatchEmbed(patch_size, embed_dim)
         self.blocks = nn.ModuleList(VoltronBlock(embed_dim, n_heads)
                                     for _ in range(depth))
-        self.encoder_norm = LayerNorm(embed_dim, eps=1e-6)
+        self.encoder_norm = TowerLayerNorm(embed_dim, eps=1e-6)
         pe = get_2d_sincos_pos_embed(embed_dim, img_size // patch_size)
         self.register_buffer("pos_embed", torch.from_numpy(pe), persistent=False)
 

@@ -9,7 +9,13 @@ function:
     voltron_vit_from_jax      <-> port_voltron_vit
     perceiver_from_jax        <-> port_perceiver
     clip_text_from_jax        <-> port_clip_text
+    clip_vision_from_jax      <-> port_clip_vision (keys without `visual.`)
     mdtv_transformer_from_jax <-> port_mdtv_transformer
+    masked_decoder_from_jax   <-> port_masked_decoder
+    clip_proj_from_jax        <-> the `clip_proj` part of port_mdtv_agent
+
+and `from_jax` of the whole agent tree is the inverse of port_mdtv_agent
+(up to its reference module prefixes, `model.inner_model.` and so on).
 
 Conventions: a flax Dense kernel (in, out) is a torch Linear weight
 (out, in); a flax Conv kernel (H, W, I, O) is a torch Conv2d weight
@@ -25,7 +31,9 @@ import numpy as np
 import torch
 
 __all__ = ["from_jax", "voltron_vit_from_jax", "perceiver_from_jax",
-           "clip_text_from_jax", "mdtv_transformer_from_jax"]
+           "clip_text_from_jax", "clip_vision_from_jax",
+           "mdtv_transformer_from_jax", "masked_decoder_from_jax",
+           "clip_proj_from_jax"]
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -57,20 +65,35 @@ def _n_numbered(params: Mapping, stem: str) -> int:
                and k[len(stem):].isdigit())
 
 
+def _voltron_block(sd: StateDict, pre: str, p: Mapping) -> None:
+    sd[f"{pre}.norm1.g"] = _t(p["norm1"]["g"])
+    _dense(sd, f"{pre}.attn.qkv", p["attn"]["qkv"])
+    _dense(sd, f"{pre}.attn.proj", p["attn"]["proj"])
+    sd[f"{pre}.ls1.gamma"] = _t(p["ls1"]["gamma"])
+    sd[f"{pre}.norm2.g"] = _t(p["norm2"]["g"])
+    _dense(sd, f"{pre}.mlp.0.project", p["mlp_glu"]["project"])
+    _dense(sd, f"{pre}.mlp.1", p["mlp_out"])
+    sd[f"{pre}.ls2.gamma"] = _t(p["ls2"]["gamma"])
+
+
 def voltron_vit_from_jax(params: Mapping) -> StateDict:
     sd: StateDict = {}
     _conv(sd, "patch2embed.proj", params["patch_embed"]["proj"])
     for i in range(_n_numbered(params, "block_")):
-        p, pre = params[f"block_{i}"], f"blocks.{i}"
-        sd[f"{pre}.norm1.g"] = _t(p["norm1"]["g"])
-        _dense(sd, f"{pre}.attn.qkv", p["attn"]["qkv"])
-        _dense(sd, f"{pre}.attn.proj", p["attn"]["proj"])
-        sd[f"{pre}.ls1.gamma"] = _t(p["ls1"]["gamma"])
-        sd[f"{pre}.norm2.g"] = _t(p["norm2"]["g"])
-        _dense(sd, f"{pre}.mlp.0.project", p["mlp_glu"]["project"])
-        _dense(sd, f"{pre}.mlp.1", p["mlp_out"])
-        sd[f"{pre}.ls2.gamma"] = _t(p["ls2"]["gamma"])
+        _voltron_block(sd, f"blocks.{i}", params[f"block_{i}"])
     _ln(sd, "encoder_norm", params["norm"])
+    return sd
+
+
+def masked_decoder_from_jax(params: Mapping) -> StateDict:
+    sd: StateDict = {"mask_token": _t(params["mask_token"]),
+                     "ctx_dec_pe": _t(params["ctx_dec_pe"]),
+                     "decoder_norm.g": _t(params["decoder_norm"]["g"])}
+    _conv(sd, "patch2embed.proj", params["patch2embed"]["proj"])
+    _dense(sd, "encoder2decoder", params["encoder2decoder"])
+    _dense(sd, "decoder_patch_prediction", params["decoder_patch_prediction"])
+    for i in range(_n_numbered(params, "block_")):
+        _voltron_block(sd, f"decoder_blocks.{i}", params[f"block_{i}"])
     return sd
 
 
@@ -91,12 +114,7 @@ def perceiver_from_jax(params: Mapping) -> StateDict:
     return sd
 
 
-def clip_text_from_jax(params: Mapping) -> StateDict:
-    sd: StateDict = {
-        "token_embedding.weight": _t(params["token_embedding"]["embedding"]),
-        "positional_embedding": _t(params["positional_embedding"]),
-        "text_projection": _t(params["text_projection"]),
-    }
+def _clip_resblocks(sd: StateDict, params: Mapping) -> None:
     for i in range(_n_numbered(params, "resblock_")):
         p, pre = params[f"resblock_{i}"], f"transformer.resblocks.{i}"
         _ln(sd, f"{pre}.ln_1", p["ln_1"])
@@ -106,7 +124,43 @@ def clip_text_from_jax(params: Mapping) -> StateDict:
         _ln(sd, f"{pre}.ln_2", p["ln_2"])
         _dense(sd, f"{pre}.mlp.c_fc", p["c_fc"])
         _dense(sd, f"{pre}.mlp.c_proj", p["c_proj"])
+
+
+def clip_text_from_jax(params: Mapping) -> StateDict:
+    sd: StateDict = {
+        "token_embedding.weight": _t(params["token_embedding"]["embedding"]),
+        "positional_embedding": _t(params["positional_embedding"]),
+        "text_projection": _t(params["text_projection"]),
+    }
+    _clip_resblocks(sd, params)
     _ln(sd, "ln_final", params["ln_final"])
+    return sd
+
+
+def clip_vision_from_jax(params: Mapping) -> StateDict:
+    sd: StateDict = {
+        "class_embedding": _t(params["class_embedding"]),
+        "positional_embedding": _t(params["positional_embedding"]),
+        "proj": _t(params["proj"]),
+    }
+    _conv(sd, "conv1", params["conv1"])
+    _ln(sd, "ln_pre", params["ln_pre"])
+    _clip_resblocks(sd, params)
+    _ln(sd, "ln_post", params["ln_post"])
+    return sd
+
+
+def clip_proj_from_jax(params: Mapping) -> StateDict:
+    """ClipStyleProjection, map style: the MAPBlock under `latent_proj`."""
+    p, pre = params["latent_proj"], "latent_proj"
+    sd: StateDict = {f"{pre}.latents": _t(p["latents"]),
+                     f"{pre}.attn_norm.g": _t(p["attn_norm"]["g"]),
+                     f"{pre}.mlp_norm.g": _t(p["mlp_norm"]["g"])}
+    _dense(sd, f"{pre}.projection", p["projection"])
+    for name in ("q", "kv", "proj"):
+        _dense(sd, f"{pre}.attn.{name}", p["attn"][name])
+    _dense(sd, f"{pre}.mlp.0.project", p["mlp_glu"]["project"])
+    _dense(sd, f"{pre}.mlp.1", p["mlp_out"])
     return sd
 
 
@@ -156,17 +210,23 @@ def mdtv_transformer_from_jax(params: Mapping) -> StateDict:
 _PARTS = {
     "img_encoder": voltron_vit_from_jax,
     "perceiver": perceiver_from_jax,
+    "visual_goal": clip_vision_from_jax,
     "language_goal": clip_text_from_jax,
     "inner": mdtv_transformer_from_jax,
+    "gen_img": masked_decoder_from_jax,
+    "clip_proj": clip_proj_from_jax,
 }
 
 
 def from_jax(params: Mapping) -> StateDict:
-    """The JAX `MDTVAgentNet` parameter tree -> the port's `MDTVAgentNet`
-    state_dict. Reads `img_encoder`, `perceiver`, `language_goal` and
-    `inner`; ignores `visual_goal`, `gen_img`, `clip_proj` and
-    `logit_scale`, which the port has no module for yet."""
+    """The JAX `MDTVAgentNet` parameter tree (or any part of it, such as
+    the gradient tree of the trainables) -> the port's `MDTVAgentNet`
+    state_dict keys. Converts every network of `_PARTS` and `logit_scale`
+    that the tree holds."""
     sd: StateDict = {}
     for part, convert in _PARTS.items():
-        sd.update({f"{part}.{k}": v for k, v in convert(params[part]).items()})
+        if part in params:
+            sd.update({f"{part}.{k}": v for k, v in convert(params[part]).items()})
+    if "logit_scale" in params:
+        sd["logit_scale"] = _t(params["logit_scale"]).reshape(())
     return sd

@@ -1,7 +1,8 @@
 """`mdt_policy_tpu_torch/utils/from_jax.py` is the exact inverse of the JAX
-package's `utils/torch_port.py` converters, for each of the four networks
-of the slice: port_*(from_jax(params)) == params and
-from_jax(port_*(sd)) == sd, bit for bit."""
+package's `utils/torch_port.py` converters, for each network of the agent
+and for the whole MDT-V tree through `port_mdtv_agent`:
+port_*(from_jax(params)) == params and from_jax(port_*(sd)) == sd, bit for
+bit."""
 
 import functools
 
@@ -11,13 +12,17 @@ import pytest
 import torch
 
 from mdt_policy_tpu.models.clip import CLIPTextTower as JCLIPText
+from mdt_policy_tpu.models.clip import CLIPVisionTower as JCLIPVision
+from mdt_policy_tpu.models.masked_decoder import MaskedTransformerImgDecoder as JDecoder
 from mdt_policy_tpu.models.mdtv_transformer import MDTVTransformer as JMDTV
 from mdt_policy_tpu.models.perceiver import PerceiverResampler as JPerceiver
 from mdt_policy_tpu.models.voltron_vit import VoltronViT as JVoltron
 from mdt_policy_tpu.utils import torch_port
 from mdt_policy_tpu_torch.agents import init_random_
-from mdt_policy_tpu_torch.models import (CLIPTextTower, MDTVTransformer,
-                                         PerceiverResampler, VoltronViT)
+from mdt_policy_tpu_torch.models import (CLIPTextTower, CLIPVisionTower,
+                                         MaskedTransformerImgDecoder,
+                                         MDTVTransformer, PerceiverResampler,
+                                         VoltronViT)
 from mdt_policy_tpu_torch.utils import from_jax
 
 
@@ -82,6 +87,30 @@ def _clip_text():
             lambda sd: torch_port.port_clip_text(sd, layers=2))
 
 
+def _clip_vision():
+    x = np.zeros((1, 32, 32, 3), np.float32)
+    visual = lambda f: lambda sd: f({f"visual.{k}": v for k, v in sd.items()})
+    return (_jax_params(JCLIPVision(embed_dim=16, image_resolution=32, layers=2,
+                                    width=64, patch_size=16), x),
+            CLIPVisionTower(16, 32, 2, 64, 16),
+            from_jax.clip_vision_from_jax,
+            visual(lambda sd: torch_port.port_clip_vision(sd, layers=2)))
+
+
+def _masked_decoder():
+    ctx = np.zeros((1, 4, 24), np.float32)
+    imgs = np.zeros((1, 2, 32, 32, 3), np.float32)
+    jm = JDecoder(resolution=32, patch_size=16, decoder_depth=2,
+                  decoder_embed_dim=16, decoder_n_heads=2, context_dim=24)
+    init = jax.jit(jm.init)
+    params = jax.device_get(init({"params": jax.random.PRNGKey(0),
+                                  "mask": jax.random.PRNGKey(1)}, ctx, imgs)["params"])
+    return (params,
+            MaskedTransformerImgDecoder(32, 16, 2, 16, 2, context_dim=24),
+            from_jax.masked_decoder_from_jax,
+            lambda sd: torch_port.port_masked_decoder(sd, depth=2))
+
+
 def _mdtv_transformer():
     kw = dict(obs_dim=24, goal_dim=16, action_dim=7, proprio_dim=8,
               embed_dim=24, n_enc_layers=2, n_dec_layers=2, n_heads=2)
@@ -99,7 +128,8 @@ def _mdtv_transformer():
 # each maker inits its JAX module once per test session
 PARTS = {name: functools.cache(make) for name, make in (
     ("img_encoder", _voltron), ("perceiver", _perceiver),
-    ("language_goal", _clip_text), ("inner", _mdtv_transformer))}
+    ("visual_goal", _clip_vision), ("language_goal", _clip_text),
+    ("inner", _mdtv_transformer), ("gen_img", _masked_decoder))}
 
 
 @pytest.mark.parametrize("part", sorted(PARTS))
@@ -116,13 +146,87 @@ def test_from_jax_of_port_is_identity(part):
 
 
 def test_from_jax_agent_keys_and_ignored_parts():
-    """The agent-level converter prefixes the four parts and leaves out the
-    towers the port has no module for yet."""
+    """The agent-level converter prefixes every network of the tree it is
+    given and leaves out what the tree does not hold (a gradient tree has
+    no frozen towers)."""
     parts = {name: make()[0] for name, make in PARTS.items()}
-    tree = {**parts, "visual_goal": {"x": np.zeros(1)}, "gen_img": {},
-            "clip_proj": {}, "logit_scale": np.zeros(())}
-    sd = from_jax.from_jax(tree)
-    assert {k.split(".", 1)[0] for k in sd} == set(PARTS)
+    sd = from_jax.from_jax({**parts, "logit_scale": np.float32(2.5)})
+    assert {k.split(".", 1)[0] for k in sd} == set(PARTS) | {"logit_scale"}
     assert sd["img_encoder.patch2embed.proj.weight"].shape == (32, 3, 16, 16)
     assert sd["language_goal.transformer.resblocks.1.attn.in_proj_weight"].shape \
         == (48, 16)
+    assert sd["visual_goal.conv1.weight"].shape == (64, 3, 16, 16)
+    assert sd["gen_img.decoder_blocks.1.norm1.g"].shape == (16,)
+    assert sd["logit_scale"].shape == () and float(sd["logit_scale"]) == 2.5
+    trainable = from_jax.from_jax({"inner": parts["inner"], "gen_img": parts["gen_img"]})
+    assert {k.split(".", 1)[0] for k in trainable} == {"inner", "gen_img"}
+
+
+# the reference checkpoint's module prefixes, as port_mdtv_agent reads them
+REF_PREFIX = {"inner": "model.inner_model.", "perceiver": "perceiver.",
+              "img_encoder": "img_encoder.vcond.",
+              "visual_goal": "visual_goal.clip_model.visual.",
+              "language_goal": "language_goal.clip_rn50.", "gen_img": "gen_img.",
+              "clip_proj": "clip_proj."}
+TINY = dict(
+    latent_dim=32, embed_dim=32, obs_dim=32, goal_dim=16, clip_embed_dim=16,
+    n_enc_layers=1, n_dec_layers=2, n_heads=2,
+    perceiver_dim=32, perceiver_depth=2, perceiver_heads=2, perceiver_dim_head=8,
+    num_latents=3, img_size=32, vit_patch=16, vit_depth=2, vit_heads=2,
+    clip_vision_width=32, clip_vision_layers=2, clip_vision_patch=16,
+    clip_text_width=16, clip_text_layers=2, clip_text_heads=2,
+    clip_context_length=8, clip_vocab_size=100,
+    gen_img_res=32, gen_patch_size=16, gen_decoder_depth=2, gen_decoder_dim=16,
+    gen_decoder_heads=2, use_proprio=True)
+
+
+def _reference_layout(sd):
+    out = {}
+    for k, v in sd.items():
+        part, _, rest = k.partition(".")
+        out[REF_PREFIX[part] + rest if part in REF_PREFIX else k] = v
+    return out
+
+
+def _port_agent(sd):
+    return torch_port.port_mdtv_agent(
+        _reference_layout(sd), n_enc_layers=1, n_dec_layers=2,
+        perceiver_depth=2, gen_depth=2, clip_vision_layers=2, clip_text_layers=2)
+
+
+@functools.cache
+def _jax_agent_tree():
+    from mdt_policy_tpu.agents import MDTVConfig as JaxConfig
+    from mdt_policy_tpu.agents import init_agent
+    rng = np.random.default_rng(0)
+    B = 2
+    example = {
+        "rgb_static": rng.uniform(size=(B, 2, 32, 32, 3)).astype(np.float32),
+        "rgb_gripper": rng.uniform(size=(B, 2, 84, 84, 3)).astype(np.float32),
+        "gen_static": rng.uniform(size=(B, 32, 32, 3)).astype(np.float32),
+        "gen_gripper": rng.uniform(size=(B, 32, 32, 3)).astype(np.float32),
+        "actions": rng.normal(size=(B, 10, 7)).astype(np.float32),
+        "lang_tokens": rng.integers(1, 100, size=(B, 8)).astype(np.int32),
+        "state_obs": rng.normal(size=(B, 1, 8)).astype(np.float32),
+    }
+    _, state = init_agent(JaxConfig(**TINY), jax.random.PRNGKey(0), example)
+    # the frozen towers are bf16 in the tree; compare as float32
+    return jax.tree.map(lambda a: np.asarray(a, np.float32),
+                        jax.device_get(state.params))
+
+
+def test_port_of_from_jax_is_identity_for_the_agent():
+    """The whole MDT-V tree of `init_agent` (every network, `clip_proj` and
+    `logit_scale`) -> from_jax -> port_mdtv_agent is the tree, bit for bit."""
+    params = _jax_agent_tree()
+    assert {"visual_goal", "gen_img", "clip_proj", "logit_scale"} <= set(params)
+    assert_same_tree(_port_agent(from_jax.from_jax(params)), params)
+
+
+def test_from_jax_of_port_is_identity_for_the_agent():
+    from mdt_policy_tpu_torch.agents import MDTVAgentNet, MDTVConfig
+    net = MDTVAgentNet(MDTVConfig(**TINY, compute_dtype="float32"), device="cpu")
+    sd = _port_sd(net)
+    back = from_jax.from_jax(jax.tree.map(np.asarray, _port_agent(sd)))
+    assert_same_state_dict(back, sd)
+    net.load_state_dict(from_jax.from_jax(_jax_agent_tree()), strict=True)

@@ -201,9 +201,10 @@ def _expected_eps(name):
     """Norm eps of the JAX package, by module: flax LayerNorm's default 1e-6
     in the perceiver (perceiver.py:201-317), Voltron's final norm
     (voltron_vit.py:254) and the decoder's `ln3` (blocks.py:291); 1e-5 in
-    CLIP (clip.py:115,253) and the biasless LayerNorms (blocks.py:79); 1e-8
-    in RMSNorm (blocks.py:90)."""
-    if name.startswith("img_encoder.blocks."):
+    CLIP (clip.py:115,220,253) and the biasless LayerNorms (blocks.py:79);
+    1e-8 in RMSNorm (blocks.py:90): the Voltron and foresight-decoder blocks,
+    `decoder_norm` and the MAP block's norms."""
+    if name.startswith(("img_encoder.blocks.", "gen_img.", "clip_proj.")):
         return 1e-8
     if name.startswith(("perceiver.", "img_encoder.")) or name.endswith(".ln3"):
         return 1e-6
@@ -214,11 +215,15 @@ def test_every_norm_has_the_jax_eps():
     """At O(1) activations the eps of a norm does not show in the parity
     tests, so each norm of the agent is checked against the JAX value."""
     net = MDTVAgentNet(MDTVConfig(perceiver_depth=1, vit_depth=1,
-                                  clip_text_layers=1, n_enc_layers=1,
-                                  n_dec_layers=1, clip_vocab_size=64))
+                                  clip_text_layers=1, clip_vision_layers=1,
+                                  gen_decoder_depth=1, n_enc_layers=1,
+                                  n_dec_layers=1, clip_vocab_size=64),
+                       device="cpu")
     norms = {name: m for name, m in net.named_modules()
              if isinstance(m, (torch.nn.LayerNorm, pb.RMSNorm))}
-    assert len(norms) == 18  # Voltron 3, perceiver 5, CLIP 3, encoder 3, decoder 4
+    # Voltron 3, perceiver 5, CLIP text 3, CLIP vision 4, encoder 3,
+    # decoder 4, foresight decoder 3, MAP block 2
+    assert len(norms) == 27
     for name, m in norms.items():
         assert m.eps == _expected_eps(name), name
 
