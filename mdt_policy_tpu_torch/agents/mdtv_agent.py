@@ -131,9 +131,8 @@ class MDTVAgentNet(nn.Module):
             c.gen_decoder_dim, c.gen_decoder_heads, context_dim=c.latent_dim,
             mask_ratio=c.gen_mask_ratio,
             dtype=None if gen_dt == torch.float32 else gen_dt)
-        # style 'map', token_dim=latent_dim, index 1, 4 tokens (JAX :159-163)
-        self.clip_proj = ClipStyleProjection("map", token_dim=c.latent_dim,
-                                             clip_token_index=1, num_token=4)
+        # style 'map' over the whole context, token_dim=latent_dim (JAX :159-163)
+        self.clip_proj = ClipStyleProjection(token_dim=c.latent_dim)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
         for name in FROZEN_PREFIXES:
             getattr(self, name).requires_grad_(False)

@@ -3,8 +3,10 @@
 // Replaces the Pallas TPU kernels mdt_policy_tpu/ops/fused_norm.py
 // (fused_layer_norm: _ln_kernel; fused_rms_norm: _rms_kernel). Contract,
 // identical to them:
-//   x (rows, D) row-major, float32 or bfloat16; weights (D,), float32 or
-//   bfloat16 (cast to f32 here); out (rows, D) in the dtype of x.
+//   x (rows, D) row-major, float32 or bfloat16; weights (D,) in the dtype of
+//   x (cast to f32 here); out (rows, D) in the dtype of x. A caller with an
+//   f32 master weight and a bf16 input casts the weight first, as the JAX
+//   modules do.
 //   LayerNorm: mean and variance of the row in f32, y = (x - mean) *
 //   rsqrt(var + eps) * w + b in f32, rounded once to the output dtype.
 //   RMSNorm:   n = max(||x||_2 * D^-1/2, eps) in f32, y = x / n * g in f32,
@@ -79,9 +81,9 @@ template <typename T> __host__ __device__ constexpr int vec_elems() {
   return static_cast<int>(16 / sizeof(T));
 }
 
-template <typename T, typename W, int VPL, bool kRms>
+template <typename T, int VPL, bool kRms>
 __global__ void __launch_bounds__(kWarps * 32)
-fused_norm_kernel(const T* __restrict__ x, const W* __restrict__ w, const W* __restrict__ b,
+fused_norm_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
             T* __restrict__ out, long long rows, int D, float inv_sqrt_d, float eps) {
   constexpr int V = vec_elems<T>();
   const int lane = threadIdx.x & 31;
@@ -129,13 +131,13 @@ fused_norm_kernel(const T* __restrict__ x, const W* __restrict__ w, const W* __r
     const int v = lane + 32 * i;
     if (v < n_vec) {
       float wv[V], y[V];
-      load_f32<W, V>(w + v * V, wv);
+      load_f32<T, V>(w + v * V, wv);
       if constexpr (kRms) {
 #pragma unroll
         for (int e = 0; e < V; ++e) y[e] = vals[i][e] / scale * wv[e];
       } else {
         float bv[V];
-        load_f32<W, V>(b + v * V, bv);
+        load_f32<T, V>(b + v * V, bv);
 #pragma unroll
         for (int e = 0; e < V; ++e) y[e] = (vals[i][e] - mean) * scale * wv[e] + bv[e];
       }
@@ -144,7 +146,7 @@ fused_norm_kernel(const T* __restrict__ x, const W* __restrict__ w, const W* __r
   }
 }
 
-template <typename T, typename W, bool kRms>
+template <typename T, bool kRms>
 int launch_typed(const void* x, const void* w, const void* b, void* out, long long rows,
                  int D, float eps, cudaStream_t stream) {
   constexpr int V = vec_elems<T>();
@@ -153,19 +155,19 @@ int launch_typed(const void* x, const void* w, const void* b, void* out, long lo
   const dim3 grid(static_cast<unsigned>((rows + kWarps - 1) / kWarps));
   const dim3 block(kWarps * 32);
   const T* xp = static_cast<const T*>(x);
-  const W* wp = static_cast<const W*>(w);
-  const W* bp = static_cast<const W*>(b);
+  const T* wp = static_cast<const T*>(w);
+  const T* bp = static_cast<const T*>(b);
   T* op = static_cast<T*>(out);
   // D^-1/2 rounded once from double, as the plain version's Python scalar
   const float inv_sqrt_d = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
   if (vpl <= 1) {
-    fused_norm_kernel<T, W, 1, kRms><<<grid, block, 0, stream>>>(xp, wp, bp, op, rows, D, inv_sqrt_d, eps);
+    fused_norm_kernel<T, 1, kRms><<<grid, block, 0, stream>>>(xp, wp, bp, op, rows, D, inv_sqrt_d, eps);
   } else if (vpl <= 2) {
-    fused_norm_kernel<T, W, 2, kRms><<<grid, block, 0, stream>>>(xp, wp, bp, op, rows, D, inv_sqrt_d, eps);
+    fused_norm_kernel<T, 2, kRms><<<grid, block, 0, stream>>>(xp, wp, bp, op, rows, D, inv_sqrt_d, eps);
   } else if (vpl <= 4) {
-    fused_norm_kernel<T, W, 4, kRms><<<grid, block, 0, stream>>>(xp, wp, bp, op, rows, D, inv_sqrt_d, eps);
+    fused_norm_kernel<T, 4, kRms><<<grid, block, 0, stream>>>(xp, wp, bp, op, rows, D, inv_sqrt_d, eps);
   } else if (vpl <= kVplMax) {
-    fused_norm_kernel<T, W, kVplMax, kRms><<<grid, block, 0, stream>>>(xp, wp, bp, op, rows, D, inv_sqrt_d, eps);
+    fused_norm_kernel<T, kVplMax, kRms><<<grid, block, 0, stream>>>(xp, wp, bp, op, rows, D, inv_sqrt_d, eps);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -174,15 +176,11 @@ int launch_typed(const void* x, const void* w, const void* b, void* out, long lo
 
 template <bool kRms>
 int launch(const void* x, const void* w, const void* b, void* out, long long rows, int D,
-           float eps, int x_bf16, int w_bf16, void* stream) {
+           float eps, int is_bf16, void* stream) {
   if (rows <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16) {
-    return w_bf16 ? launch_typed<__nv_bfloat16, __nv_bfloat16, kRms>(x, w, b, out, rows, D, eps, s)
-                  : launch_typed<__nv_bfloat16, float, kRms>(x, w, b, out, rows, D, eps, s);
-  }
-  return w_bf16 ? launch_typed<float, __nv_bfloat16, kRms>(x, w, b, out, rows, D, eps, s)
-                : launch_typed<float, float, kRms>(x, w, b, out, rows, D, eps, s);
+  return is_bf16 ? launch_typed<__nv_bfloat16, kRms>(x, w, b, out, rows, D, eps, s)
+                 : launch_typed<float, kRms>(x, w, b, out, rows, D, eps, s);
 }
 
 }  // namespace
@@ -196,14 +194,13 @@ int mdt_fused_norm_max_width(int is_bf16) {
 
 // Launch on `stream`; return cudaGetLastError() (0 on success).
 int mdt_fused_layer_norm(const void* x, const void* w, const void* b, void* out,
-                         long long rows, int D, float eps, int x_bf16, int w_bf16,
-                         void* stream) {
-  return launch<false>(x, w, b, out, rows, D, eps, x_bf16, w_bf16, stream);
+                         long long rows, int D, float eps, int is_bf16, void* stream) {
+  return launch<false>(x, w, b, out, rows, D, eps, is_bf16, stream);
 }
 
 int mdt_fused_rms_norm(const void* x, const void* g, void* out, long long rows, int D,
-                       float eps, int x_bf16, int w_bf16, void* stream) {
-  return launch<true>(x, g, nullptr, out, rows, D, eps, x_bf16, w_bf16, stream);
+                       float eps, int is_bf16, void* stream) {
+  return launch<true>(x, g, nullptr, out, rows, D, eps, is_bf16, stream);
 }
 
 }  // extern "C"

@@ -308,17 +308,12 @@ class MAPBlock(nn.Module):
 
 
 class ClipStyleProjection(nn.Module):
-    """Latent -> contrastive-embedding head (JAX blocks.py:463-493). The
-    port has the MDT-V style, "map": one MAPBlock latent, 8 heads, over the
-    whole context."""
+    """Latent -> contrastive-embedding head (JAX blocks.py:463-493) in the
+    MDT-V style, "map": one MAPBlock latent, 8 heads, over the whole context.
+    The other styles are not ported (ROADMAP queue A item 18)."""
 
-    def __init__(self, clip_style: str = "map", token_dim: int = 384,
-                 clip_token_index: int = 0, num_token: int = 4):
+    def __init__(self, token_dim: int = 384):
         super().__init__()
-        if clip_style != "map":
-            raise NotImplementedError(
-                f"clip_style {clip_style!r} is not ported yet (ROADMAP queue A "
-                "item 18); the port has 'map'")
         self.latent_proj = MAPBlock(1, token_dim, 8, output_dim=token_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

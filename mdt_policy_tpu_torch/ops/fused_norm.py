@@ -71,8 +71,9 @@ def _check(name: str, x: torch.Tensor, *weights: torch.Tensor) -> None:
     for t in weights:
         if t.shape != (D,):
             raise ValueError(f"{name}: weight shape {tuple(t.shape)}, expected ({D},)")
-    if len(weights) == 2 and weights[0].dtype != weights[1].dtype:
-        raise TypeError(f"{name}: weight and bias dtypes differ")
+    if any(t.dtype != x.dtype for t in weights):
+        raise TypeError(f"{name}: weights in {[t.dtype for t in weights]}, input "
+                        f"in {x.dtype}; cast the weights to the input's dtype")
     if not (x.is_contiguous() and all(t.is_contiguous() for t in weights)):
         raise ValueError(f"{name}: input and weights must be contiguous")
 
@@ -82,10 +83,10 @@ def _library() -> ctypes.CDLL:
     lib = _build.load_library("fused_norm")
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.mdt_fused_layer_norm.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_longlong,
-                                         i, f, i, i, ptr]
+                                         i, f, i, ptr]
     lib.mdt_fused_layer_norm.restype = ctypes.c_int
     lib.mdt_fused_rms_norm.argtypes = [ptr, ptr, ptr, ctypes.c_longlong, i, f,
-                                       i, i, ptr]
+                                       i, ptr]
     lib.mdt_fused_rms_norm.restype = ctypes.c_int
     lib.mdt_fused_norm_max_width.argtypes = [i]
     lib.mdt_fused_norm_max_width.restype = ctypes.c_int
@@ -110,19 +111,19 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     out = torch.empty_like(x)
     if rows == 0:
         return out
-    x_bf16, w_bf16 = int(x.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16)
+    is_bf16 = int(x.dtype == torch.bfloat16)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if b is None:
             rc = lib.mdt_fused_rms_norm(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                        rows, D, eps, x_bf16, w_bf16, stream)
+                                        rows, D, eps, is_bf16, stream)
         else:
             rc = lib.mdt_fused_layer_norm(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                                          out.data_ptr(), rows, D, eps, x_bf16,
-                                          w_bf16, stream)
+                                          out.data_ptr(), rows, D, eps, is_bf16,
+                                          stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc} for x "
-                           f"{tuple(x.shape)} {x.dtype}, weights {w.dtype}")
+                           f"{tuple(x.shape)} {x.dtype}")
     (fused_rms_norm if b is None else fused_layer_norm).launches += 1
     return out
 
@@ -158,8 +159,8 @@ class _FusedNorm(torch.autograd.Function):
 
 def fused_layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                      eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last axis: x (..., D), w and b (D,); output in the
-    dtype of x. CUDA tensors run the kernel (one launch, counted in
+    """LayerNorm over the last axis: x (..., D), w and b (D,) in the dtype of
+    x; output in the dtype of x. CUDA tensors run the kernel (one launch, counted in
     `fused_layer_norm.launches`); CPU tensors run the plain version."""
     _check("fused_layer_norm", x, w, b)
     if x.device.type == "cpu":
@@ -170,7 +171,7 @@ def fused_layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def fused_rms_norm(x: torch.Tensor, g: torch.Tensor,
                    eps: float = 1e-8) -> torch.Tensor:
     """x / max(||x||_2 * D^-1/2, eps) * g over the last axis: x (..., D),
-    g (D,); output in the dtype of x. CUDA tensors run the kernel (counted in
+    g (D,) in the dtype of x; output in the dtype of x. CUDA tensors run the kernel (counted in
     `fused_rms_norm.launches`); CPU tensors run the plain version."""
     _check("fused_rms_norm", x, g)
     if x.device.type == "cpu":

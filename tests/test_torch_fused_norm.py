@@ -75,15 +75,22 @@ def test_rms_norm_clamps_tiny_rows():
 @pytest.mark.parametrize("kind", ["ln", "rms"])
 @pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
 def test_bf16_in_out_matches_pallas_kernel(kind, w_dtype):
-    """bf16 input and output with f32 statistics, with an f32 weight (the
-    decoder's master weight) or a bf16 one (the frozen towers)."""
+    """bf16 input and output with f32 statistics, from a bf16 weight (the
+    frozen towers) or an f32 master weight (the foresight decoder). The
+    kernel takes weights in the input's dtype only: an f32 weight is refused
+    as it is, and the caller casts it to bf16 first, as the JAX decoder does
+    (masked_decoder.py:76, blocks.py:97-98); the Pallas kernel gets the same
+    cast weight."""
     import jax.numpy as jnp
     from mdt_policy_tpu.ops import fused_norm as jfn
     x, w, b = _arrays((6, 384), 2, scale=30.0)
     xb = torch.from_numpy(x).bfloat16()
     wt, bt = (torch.from_numpy(a).to(w_dtype) for a in (w, b))
-    jw, jb = (jnp.asarray(t.float().numpy()).astype(
-        jnp.bfloat16 if w_dtype == torch.bfloat16 else jnp.float32) for t in (wt, bt))
+    if w_dtype != torch.bfloat16:
+        with pytest.raises(TypeError, match="cast the weights"):
+            fused_layer_norm(xb, wt, bt, 1e-5) if kind == "ln" else fused_rms_norm(xb, wt)
+        wt, bt = wt.bfloat16(), bt.bfloat16()
+    jw, jb = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in (wt, bt))
     jx = jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16)
     if kind == "ln":
         ref = jfn.fused_layer_norm(jx, jw, jb, 1e-5, 2, True)

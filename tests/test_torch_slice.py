@@ -17,9 +17,11 @@ import torch
 
 from mdt_policy_tpu.agents import MDTVConfig as JaxConfig
 from mdt_policy_tpu.agents import init_agent
+from mdt_policy_tpu.agents.mdtv_agent import MDTVPolicy as JaxPolicy
 from mdt_policy_tpu.agents.mdtv_agent import denoise_actions as jax_denoise
 from mdt_policy_tpu_torch.agents import (MDTVAgentNet, MDTVConfig, MDTVPolicy,
                                          denoise_actions)
+from mdt_policy_tpu_torch.agents import mdtv_agent as port_agent
 from mdt_policy_tpu_torch.utils.from_jax import from_jax
 
 # TINY_OVERRIDES of tests/test_training_cli.py, with the production DDIM-10
@@ -170,6 +172,35 @@ def test_policy_caches_the_goal_and_replays_the_chunk():
         a = policy.step(obs, {"rgb_static_goal": goal_image})
         assert encode_image.call_count == 1
     assert a.shape == (B, 7) and torch.isfinite(a).all()
+
+
+def test_policy_vis_goal_replan_matches_jax():
+    """A goal-image replan through both policies' `step` (CLIP vision goal,
+    the "vis" modality): the same frames, goal image and initial noise give
+    the same chunk, at the chunk bound of the lang replan."""
+    net, params, port = _agents("float32")
+    x = _inputs(seed=6)
+    obs = {k: x[k] for k in ("rgb_static", "rgb_gripper")}
+    goal = {"rgb_static_goal": x["rgb_static"][:, 0]}
+    jpolicy = JaxPolicy(net, params, rng=jax.random.PRNGKey(11))
+    ja = jpolicy.step(obs, goal)
+    # the JAX policy's initial draw (mdtv_agent.py:702, :535-536), for the port
+    _, k = jax.random.split(jax.random.PRNGKey(11))
+    k_init, _ = jax.random.split(k)
+    noise = torch.from_numpy(np.array(jax.random.normal(k_init, (B, 10, 7))))
+
+    def with_noise(*args, generator, **kw):
+        return denoise_actions(*args, noise=noise, **kw)
+    policy = MDTVPolicy(port, generator=torch.Generator().manual_seed(0))
+    with mock.patch.object(port_agent, "denoise_actions", with_noise), \
+            mock.patch.object(port, "encode_visual_goal",
+                              wraps=port.encode_visual_goal) as encode_image:
+        pa = policy.step(obs, goal)
+        assert encode_image.call_count == 1
+    rtol, atol = F32_TOL["chunk"]
+    np.testing.assert_allclose(policy.pred_action_seq.numpy(),
+                               np.asarray(jpolicy.pred_action_seq), rtol=rtol, atol=atol)
+    np.testing.assert_allclose(pa.numpy(), np.asarray(ja), rtol=rtol, atol=atol)
 
 
 def test_denoise_actions_needs_a_generator_or_noise():

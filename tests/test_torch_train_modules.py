@@ -113,14 +113,12 @@ def test_clip_style_projection():
                                 clip_token_index=1, num_token=4)
     x = _x(3, 4, 32, scale=2.0)
     p = jinit(jm, x)
-    pm = ClipStyleProjection("map", token_dim=32, clip_token_index=1, num_token=4)
+    pm = ClipStyleProjection(token_dim=32)
     pm.load_state_dict(from_jax.clip_proj_from_jax(p), strict=True)
     with torch.no_grad():
         out = pm.eval()(torch.from_numpy(x)).numpy()
     assert out.shape == (3, 32)
     np.testing.assert_allclose(out, jrun(jm, p, x), **TOL)
-    with pytest.raises(NotImplementedError, match="mean_pooling"):
-        ClipStyleProjection("mean_pooling")
 
 
 def test_loglogistic_density_from_the_same_draws():

@@ -160,29 +160,50 @@ def test_train_step_gradients_match_jax():
                                    rtol=1e-3, atol=1e-6, err_msg=k)
 
 
+def _assert_same_update(k, port_new, jax_new, before, grad, lr0):
+    """The AdamW update (new - before) of the port against JAX's. Where the
+    JAX gradient is above rounding (|g| > 1e-6, so the gradient test leaves
+    no room for a sign flip) the updates agree within 1e-3 relative plus two
+    ulps of the stored f32 parameter, the rounding of `before - update`; the
+    first Adam step is lr0 * g / (|g| + eps) and the weight decay adds
+    lr0 * 0.05 * p, about 4 ulps of p, so a missing decay, a scaled step or
+    a skipped leaf fails. Where |g| <= 1e-6 the sign of g is rounding and
+    the update may flip: there the parameters agree within 2 * lr0."""
+    p0, pn, jn, g = (np.asarray(t, np.float32) for t in (before, port_new, jax_new, grad))
+    big = np.abs(g) > 1e-6
+    d_port, d_jax = (pn - p0)[big], (jn - p0)[big]
+    ulp = np.spacing(np.abs(jn[big]))
+    excess = np.abs(d_port - d_jax) - (1e-3 * np.abs(d_jax) + 2 * ulp)
+    assert excess.size == 0 or excess.max() <= 0, \
+        (k, float(np.abs(d_port - d_jax).max()), float(np.abs(d_jax).max()))
+    np.testing.assert_allclose(pn[~big], jn[~big], rtol=0, atol=2 * lr0, err_msg=k)
+    return int(big.sum())
+
+
 def test_train_step_params_ema_and_metrics_match_jax():
-    """After AdamW every parameter agrees within 2 * lr_0 = 2e-5: Adam's first
-    step is about -lr * sign(g), and a gradient within rounding of zero can
-    take either sign. The frozen towers do not move. The EMA (decay 0 at
-    step 1) equals the new parameters up to one rounding."""
-    (jm, _, jparams, jema), (pm, _, pparams, pema) = _steps("f32")
+    """After AdamW every trainable leaf took JAX's update (see
+    `_assert_same_update`), and so did its EMA (decay 0 at step 1, so the
+    EMA is the new parameters up to one rounding). The frozen towers do not
+    move."""
+    (jm, jgrads, jparams, jema), (pm, _, pparams, pema) = _steps("f32")
     _, state0, _ = _agents("f32")
     before = from_jax(jax.device_get(state0.params))
     assert sorted(jparams) == sorted(pparams)
     lr0 = 1e-5
-    moved = 0
+    checked = 0
     for k in jparams:
-        np.testing.assert_allclose(pparams[k].numpy(), jparams[k].numpy(),
-                                   rtol=0, atol=2 * lr0, err_msg=k)
         if k.startswith(("visual_goal", "language_goal", "img_encoder")):
+            assert k not in jgrads
             torch.testing.assert_close(pparams[k], before[k], rtol=0, atol=0)
-        else:
-            moved += not torch.equal(pparams[k], before[k])
-            np.testing.assert_allclose(pema[k].numpy(), jema[k].numpy(),
-                                       rtol=0, atol=2 * lr0, err_msg=k)
-            # e - 1 * (e - p) is p up to one rounding
-            torch.testing.assert_close(pema[k], pparams[k], rtol=1e-6, atol=1e-12)
-    assert moved > 0
+            np.testing.assert_array_equal(jparams[k].numpy(), before[k].numpy())
+            continue
+        checked += _assert_same_update(k, pparams[k], jparams[k], before[k],
+                                       jgrads[k], lr0)
+        _assert_same_update(k, pema[k], jema[k], before[k], jgrads[k], lr0)
+        # e - 1 * (e - p) is p up to one rounding
+        torch.testing.assert_close(pema[k], pparams[k], rtol=1e-6, atol=1e-12)
+    # most elements carry a gradient above rounding
+    assert checked > 0.5 * sum(v.numel() for v in jgrads.values())
     for k in ("train/grad_norm", "train/param_norm"):
         np.testing.assert_allclose(pm[k], jm[k], rtol=1e-4, err_msg=k)
     np.testing.assert_allclose(pm["train/lr"], jm["train/lr"], rtol=1e-6)
