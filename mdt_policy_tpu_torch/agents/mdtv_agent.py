@@ -21,6 +21,13 @@ Every random number of a step (the sigma density's uniform draw, the action
 noise, the foresight mask's uniform draw, the denoiser's dropout) comes from
 a `draws` dict per scope, made by `make_draws` from an explicit
 `torch.Generator` or handed in by the caller.
+
+A batch that carries `voltron_tokens` and `image_latent_goal` (the frozen
+towers' outputs, cached by `data/extract_embeddings.py`) is a cache batch:
+the camera towers do not run, and in the lang scope `lang_latent_goal`, when
+present, stands in for the text tower. The tower entry points take
+`halfblocks=True` to run every tower block as kernels B4 + B5 (what
+extraction does); by default they run B1 + B3.
 """
 
 from __future__ import annotations
@@ -60,12 +67,14 @@ Batch = Mapping[str, torch.Tensor]
 def resize_nhwc(x: torch.Tensor, size: int) -> torch.Tensor:
     """(B, H, W, C) -> (B, size, size, C), bilinear with antialiasing, as
     `jax.image.resize(..., "linear", antialias=True)`; the two agree to
-    float32 rounding when upsampling (tests/test_torch_modules.py)."""
+    float32 rounding (tests/test_torch_modules.py, tests/test_torch_extract.py).
+    Computed in at least float32 and returned in the dtype of `x`."""
     if x.shape[1] == size and x.shape[2] == size:
         return x
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=(size, size),
-                      mode="bilinear", align_corners=False, antialias=True)
-    return y.permute(0, 2, 3, 1)
+    y = F.interpolate(x.permute(0, 3, 1, 2).to(torch.promote_types(x.dtype, torch.float32)),
+                      size=(size, size), mode="bilinear", align_corners=False,
+                      antialias=True)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
 # config values the port implements; any other value is rejected, not ignored
@@ -158,7 +167,8 @@ class MDTVAgentNet(nn.Module):
         return resize_nhwc(x, self.cfg.img_size)
 
     @torch.no_grad()
-    def voltron_camera_tokens(self, rgb_static, rgb_gripper) -> torch.Tensor:
+    def voltron_camera_tokens(self, rgb_static, rgb_gripper, *,
+                              halfblocks: bool = False) -> torch.Tensor:
         """Frozen Voltron tokens of a 2-camera frame pair: (B*, 2N, D) in the
         towers' dtype. Inputs (B*, H, W, 3), CLIP-normalized. Both cameras
         run as one batch (`fuse_camera_batch`, always on in the port: the
@@ -166,7 +176,7 @@ class MDTVAgentNet(nn.Module):
         cdt = getattr(torch, self.cfg.compute_dtype)
         both = torch.cat([self._to_vit_size(rgb_static),
                           self._to_vit_size(rgb_gripper)])
-        static_tokens, gripper_tokens = self.img_encoder(both.to(cdt)).chunk(2)
+        static_tokens, gripper_tokens = self.img_encoder(both.to(cdt), halfblocks).chunk(2)
         return torch.cat([static_tokens, gripper_tokens], dim=1)
 
     def compute_voltron_embeddings(self, rgb_static, rgb_gripper
@@ -180,17 +190,47 @@ class MDTVAgentNet(nn.Module):
 
     perceive = compute_voltron_embeddings
 
+    def perceive_tokens(self, voltron_tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Perceiver latents from cached frozen Voltron tokens (JAX
+        perceive_tokens, :220-227): (B, 2N, D) rows or the (B, 1, 2N, D)
+        perceiver layout, cast to the towers' dtype."""
+        vt = voltron_tokens[:, None] if voltron_tokens.ndim == 3 else voltron_tokens
+        cdt = getattr(torch, self.cfg.compute_dtype)
+        return {"state_images": self.perceiver(vt.to(device=self.device, dtype=cdt))}
+
     @torch.no_grad()
-    def encode_visual_goal(self, goal_image: torch.Tensor) -> torch.Tensor:
+    def encode_visual_goal(self, goal_image: torch.Tensor, *,
+                           halfblocks: bool = False) -> torch.Tensor:
         """Frozen CLIP vision embedding of a (B, H, W, 3) CLIP-normalized
         goal frame, float32."""
         cdt = getattr(torch, self.cfg.compute_dtype)
-        return self.visual_goal(self._to_vit_size(goal_image).to(cdt)).float()
+        return self.visual_goal(self._to_vit_size(goal_image).to(cdt), halfblocks).float()
 
     @torch.no_grad()
-    def encode_language_goal(self, lang_tokens: torch.Tensor) -> torch.Tensor:
+    def encode_language_goal(self, lang_tokens: torch.Tensor, *,
+                             halfblocks: bool = False) -> torch.Tensor:
         """Frozen CLIP text embedding, float32."""
-        return self.language_goal(lang_tokens).float()
+        return self.language_goal(lang_tokens, halfblocks).float()
+
+    def encode_towers(self, batch: Batch, modality: str):
+        """(perceptual_emb, image_latent_goal, latent_goal) of one scope
+        (JAX __call__, :273-306): from the cache when the batch carries
+        `voltron_tokens` and `image_latent_goal`, else through the frozen
+        towers; in the lang scope the batch's `lang_latent_goal` if it
+        carries one (as the JAX validation step reads it), else the text
+        tower."""
+        if "voltron_tokens" in batch and "image_latent_goal" in batch:
+            perceptual_emb = self.perceive_tokens(batch["voltron_tokens"])
+            image_latent_goal = batch["image_latent_goal"].float()
+        else:
+            perceptual_emb = self.compute_voltron_embeddings(
+                batch["rgb_static"][:, :-1], batch["rgb_gripper"][:, :-1])
+            image_latent_goal = self.encode_visual_goal(batch["rgb_static"][:, -1])
+        if modality != "lang":
+            return perceptual_emb, image_latent_goal, image_latent_goal
+        latent_goal = batch["lang_latent_goal"].float() if "lang_latent_goal" in batch \
+            else self.encode_language_goal(batch["lang_tokens"])
+        return perceptual_emb, image_latent_goal, latent_goal
 
     # ---- score model -----------------------------------------------------------
 
@@ -210,9 +250,11 @@ class MDTVAgentNet(nn.Module):
         """Per-scope losses (JAX `__call__`, mdtv_agent.py:259-348).
 
         batch: rgb_static / rgb_gripper (B, T+1, H, W, 3), the last frame
-        the goal frame; gen_static / gen_gripper (B, h, w, 3); actions
-        (B, W, A); lang_tokens (B, 77) in the lang scope; state_obs when the
-        config feeds proprio. draws: `make_draws` of this scope. `train`
+        the goal frame, or the cache's voltron_tokens (B, 2N, D) and
+        image_latent_goal (B, E); gen_static / gen_gripper (B, h, w, 3);
+        actions (B, W, A); lang_tokens (B, 77) or lang_latent_goal (B, E) in
+        the lang scope; state_obs when the config feeds proprio. draws:
+        `make_draws` of this scope. `train`
         turns the denoiser's dropout on (drawn from `draws["dropout"]`).
         Returns action_loss, img_gen_loss, cont_loss and total_loss."""
         c = self.cfg
@@ -222,11 +264,7 @@ class MDTVAgentNet(nn.Module):
                                                c.mlp_pdrop) > 0:
             raise ValueError("train mode needs draws['dropout'], a torch.Generator")
 
-        image_latent_goal = self.encode_visual_goal(batch["rgb_static"][:, -1])
-        latent_goal = self.encode_language_goal(batch["lang_tokens"]) \
-            if modality == "lang" else image_latent_goal
-        perceptual_emb = self.compute_voltron_embeddings(
-            batch["rgb_static"][:, :-1], batch["rgb_gripper"][:, :-1])
+        perceptual_emb, image_latent_goal, latent_goal = self.encode_towers(batch, modality)
         if c.use_proprio and "state_obs" in batch:
             perceptual_emb["state_obs"] = batch["state_obs"].float()
 
@@ -466,7 +504,8 @@ def validation_step(net: MDTVAgentNet, batch: Mapping[str, Batch], *,
     """Validation metrics per scope (JAX validation_step, :581-624): the
     config's sampler (DDIM-10) from the hoisted context, the action MSE
     against the ground truth, and the foresight loss on that context. Uses
-    draws[scope]["noise"] (initial noise) and ["mask"]."""
+    draws[scope]["noise"] (initial noise) and ["mask"]. A cache batch skips
+    the towers, as in `MDTVAgentNet.forward`."""
     batch = _on_device(batch, net.device)
     scopes = sorted(batch)
     if draws is None:
@@ -478,10 +517,7 @@ def validation_step(net: MDTVAgentNet, batch: Mapping[str, Batch], *,
     total = 0.0
     for scope in scopes:
         b, d = batch[scope], draws[scope]
-        emb = net.perceive(b["rgb_static"][:, :-1], b["rgb_gripper"][:, :-1])
-        image_goal = net.encode_visual_goal(b["rgb_static"][:, -1])
-        goal = net.encode_language_goal(b["lang_tokens"]) if scope == "lang" \
-            else image_goal
+        emb, _, goal = net.encode_towers(b, scope)
         pred, context = denoise_actions(net, emb, goal, noise=d["noise"],
                                         modality=scope, return_context=True)
         pred_loss = ((pred - b["actions"].float()) ** 2).mean()

@@ -1,6 +1,9 @@
 """CLIP towers (port of `mdt_policy_tpu/models/clip.py`): pre-LN
 transformers with QuickGELU and packed-qkv attention through kernel B1, every
-LayerNorm (eps 1e-5) through kernel B3.
+LayerNorm (eps 1e-5) through kernel B3. With `halfblocks=True` every residual
+block runs as the attention half-block B4 and the MLP half-block B5
+(`ops/attention_halfblock.py`, `ops/mlp_halfblock.py`); `ln_pre`, `ln_post`
+and `ln_final` stay on B3.
 
 * `CLIPTextTower`: causal, pooled at the EOT token (the largest token id).
 * `CLIPVisionTower`: ViT over NHWC images, a bias-free conv patchifier, a
@@ -17,7 +20,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.attention_halfblock import attention_halfblock
 from ..ops.fused_qkv_attention import fused_qkv_attention
+from ..ops.mlp_halfblock import mlp_halfblock
 from .blocks import TowerLayerNorm
 
 __all__ = ["quick_gelu", "ResidualAttentionBlock", "CLIPTextTower",
@@ -63,7 +68,16 @@ class ResidualAttentionBlock(nn.Module):
         self.ln_2 = TowerLayerNorm(width, eps=1e-5)
         self.mlp = _MLP(width)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, halfblocks: bool = False) -> torch.Tensor:
+        if halfblocks:  # B4 then B5, from the block's own weights
+            attn, mlp = self.attn, self.mlp
+            x = attention_halfblock(x, self.ln_1.weight, self.ln_1.bias,
+                                    attn.in_proj_weight, attn.in_proj_bias,
+                                    attn.out_proj.weight, attn.out_proj.bias, None,
+                                    attn.heads, "ln", self.ln_1.eps, attn.causal)
+            return mlp_halfblock(x, self.ln_2.weight, self.ln_2.bias, mlp.c_fc.weight,
+                                 mlp.c_fc.bias, mlp.c_proj.weight, mlp.c_proj.bias, None,
+                                 "quickgelu", "ln", self.ln_2.eps)
         x = x + self.attn(self.ln_1(x))
         return x + self.mlp(self.ln_2(x))
 
@@ -74,14 +88,15 @@ class _Transformer(nn.Module):
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, causal) for _ in range(layers))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, halfblocks: bool = False) -> torch.Tensor:
         for block in self.resblocks:
-            x = block(x)
+            x = block(x, halfblocks)
         return x
 
 
 class CLIPTextTower(nn.Module):
-    """tokens (B, context_length) int -> (B, embed_dim), in the weights' dtype."""
+    """tokens (B, context_length) int -> (B, embed_dim), in the weights' dtype;
+    `halfblocks` runs every block as B4 + B5."""
 
     def __init__(self, embed_dim: int = 512, context_length: int = 77,
                  vocab_size: int = 49408, width: int = 512, heads: int = 8,
@@ -93,9 +108,9 @@ class CLIPTextTower(nn.Module):
         self.ln_final = TowerLayerNorm(width, eps=1e-5)
         self.text_projection = nn.Parameter(torch.zeros(width, embed_dim))
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, halfblocks: bool = False) -> torch.Tensor:
         x = self.token_embedding(tokens) + self.positional_embedding[None]
-        x = self.ln_final(self.transformer(x))
+        x = self.ln_final(self.transformer(x, halfblocks))
         eot = tokens.argmax(dim=-1)  # first occurrence of the largest id
         pooled = x[torch.arange(x.shape[0], device=x.device), eot]
         return pooled @ self.text_projection
@@ -103,7 +118,8 @@ class CLIPTextTower(nn.Module):
 
 class CLIPVisionTower(nn.Module):
     """images (B, H, W, 3), CLIP-normalized -> (B, embed_dim), in the
-    weights' dtype (JAX clip.py:188-223). Heads: width // 64."""
+    weights' dtype (JAX clip.py:188-223). Heads: width // 64. `halfblocks`
+    runs every block as B4 + B5."""
 
     def __init__(self, embed_dim: int = 512, image_resolution: int = 224,
                  layers: int = 12, width: int = 768, patch_size: int = 16):
@@ -118,9 +134,9 @@ class CLIPVisionTower(nn.Module):
         self.ln_post = TowerLayerNorm(width, eps=1e-5)
         self.proj = nn.Parameter(torch.zeros(width, embed_dim))
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, halfblocks: bool = False) -> torch.Tensor:
         x = self.conv1(images.permute(0, 3, 1, 2)).flatten(2).transpose(1, 2)
         cls = self.class_embedding.expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding[None]
-        x = self.transformer(self.ln_pre(x))
+        x = self.transformer(self.ln_pre(x), halfblocks)
         return self.ln_post(x[:, 0]) @ self.proj

@@ -3,7 +3,11 @@ RMSNorm + SwishGLU + LayerScale blocks over 16-px patches with a fixed 2-D
 sin-cos position table, returning the full patch-token grid, e.g.
 (B, 196, 384) for ViT-S/16 at 224 px. In the tower, attention runs kernel B1
 (`ops/fused_qkv_attention.py`) straight off the packed qkv projection and
-every norm runs kernel B3 (`ops/fused_norm.py`). The foresight decoder
+every norm runs kernel B3 (`ops/fused_norm.py`); with `halfblocks=True`
+each tower block runs as the attention half-block B4 and the MLP half-block
+B5 instead (`ops/attention_halfblock.py`, `ops/mlp_halfblock.py`, the JAX
+block's `fused_kernel` counterpart), and only `encoder_norm` stays on B3.
+The foresight decoder
 builds its blocks with `fused_kernel=False` and a compute `dtype`, as the
 JAX decoder does: plain `sdpa` attention, f32 master weights cast to bf16.
 
@@ -23,7 +27,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import sdpa
+from ..ops.attention_halfblock import attention_halfblock
 from ..ops.fused_qkv_attention import fused_qkv_attention
+from ..ops.mlp_halfblock import mlp_halfblock
 from .blocks import RMSNorm, SwishGLU, TowerLayerNorm, dense
 
 __all__ = ["get_2d_sincos_pos_embed", "PatchEmbed", "LayerScale",
@@ -122,9 +128,17 @@ class VoltronBlock(nn.Module):
         self.mlp = nn.Sequential(SwishGLU(dim, hidden, dtype), nn.Linear(hidden, dim))
         self.ls2 = LayerScale(dim, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.ls1(self.attn(self.norm1(x)))
+    def forward(self, x: torch.Tensor, halfblocks: bool = False) -> torch.Tensor:
         glu, out = self.mlp
+        if halfblocks:  # B4 then B5, from the tower's own weights
+            attn = self.attn
+            x = attention_halfblock(x, self.norm1.g, None, attn.qkv.weight, attn.qkv.bias,
+                                    attn.proj.weight, attn.proj.bias, self.ls1.gamma,
+                                    attn.n_heads, "rms", self.norm1.eps)
+            return mlp_halfblock(x, self.norm2.g, None, glu.project.weight,
+                                 glu.project.bias, out.weight, out.bias, self.ls2.gamma,
+                                 "swishglu", "rms", self.norm2.eps)
+        x = x + self.ls1(self.attn(self.norm1(x)))
         h = glu(self.norm2(x))
         return x + self.ls2(dense(h, out, self.dtype or h.dtype))
 
@@ -141,11 +155,12 @@ class VoltronViT(nn.Module):
         pe = get_2d_sincos_pos_embed(embed_dim, img_size // patch_size)
         self.register_buffer("pos_embed", torch.from_numpy(pe), persistent=False)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, halfblocks: bool = False) -> torch.Tensor:
         """images (B, H, W, 3) -> tokens (B, n_patches, embed_dim), in the
-        dtype of the images (which must match the weights')."""
+        dtype of the images (which must match the weights'); `halfblocks`
+        runs every block as B4 + B5."""
         x = self.patch2embed(images)
         x = x + self.pos_embed.to(x.dtype)[None]
         for block in self.blocks:
-            x = block(x)
+            x = block(x, halfblocks)
         return self.encoder_norm(x)

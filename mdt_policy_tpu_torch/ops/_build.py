@@ -7,8 +7,9 @@ library with a plain C interface:
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
 The output lands in `build/kernels/` beside the package (ignored by git),
-keyed by a hash of the source and the flags, so an edited source rebuilds and
-an unchanged one is reused. Nothing here runs at import time.
+keyed by a hash of the source, every shared header `csrc/*.cuh` and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -39,13 +40,21 @@ def _nvcc() -> str:
                        "CUDA toolkit is installed")
 
 
+def digest(name: str, csrc: Path = CSRC) -> str:
+    """Hash of `<csrc>/<name>.cu`, every `<csrc>/*.cuh` it may include, and
+    the flags: the key of the built library."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
     """Build `csrc/<name>.cu` if its library is missing, then load it.
     Raises on a failed build, with the compiler's output."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{name}-{digest}.so"
+    out = BUILD_DIR / f"{name}-{digest(name)}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)

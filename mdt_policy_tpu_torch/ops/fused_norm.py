@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from ._plain_backward import PlainBackward
 
 __all__ = ["fused_layer_norm", "fused_layer_norm_reference", "fused_rms_norm",
            "fused_rms_norm_reference"]
@@ -134,29 +135,6 @@ def _reference(x, w, b, eps):
         else fused_layer_norm_reference(x, w, b, eps)
 
 
-class _FusedNorm(torch.autograd.Function):
-    """Kernel forward (LayerNorm, or RMSNorm when `b` is None); the backward
-    differentiates the plain version, as the TPU kernels' custom VJPs do."""
-
-    @staticmethod
-    def forward(ctx, x, w, b, eps):
-        ctx.save_for_backward(x, w, b)
-        ctx.eps = eps
-        return _launch(x, w, b, eps)
-
-    @staticmethod
-    def backward(ctx, grad):
-        x, w, b = ctx.saved_tensors
-        with torch.enable_grad():
-            inputs = [None if t is None else t.detach().requires_grad_(needed)
-                      for t, needed in zip((x, w, b), ctx.needs_input_grad)]
-            y = _reference(*inputs, ctx.eps)
-        wanted = [t for t in inputs if t is not None and t.requires_grad]
-        grads = iter(torch.autograd.grad(y, wanted, grad))
-        return (*(next(grads) if t is not None and t.requires_grad else None
-                  for t in inputs), None)
-
-
 def fused_layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                      eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis: x (..., D), w and b (D,) in the dtype of
@@ -165,7 +143,7 @@ def fused_layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     _check("fused_layer_norm", x, w, b)
     if x.device.type == "cpu":
         return fused_layer_norm_reference(x, w, b, eps)
-    return _FusedNorm.apply(x, w, b, eps)
+    return PlainBackward.apply(_launch, _reference, {"eps": eps}, x, w, b)
 
 
 def fused_rms_norm(x: torch.Tensor, g: torch.Tensor,
@@ -176,7 +154,7 @@ def fused_rms_norm(x: torch.Tensor, g: torch.Tensor,
     _check("fused_rms_norm", x, g)
     if x.device.type == "cpu":
         return fused_rms_norm_reference(x, g, eps)
-    return _FusedNorm.apply(x, g, None, eps)
+    return PlainBackward.apply(_launch, _reference, {"eps": eps}, x, g, None)
 
 
 fused_layer_norm.launches = 0

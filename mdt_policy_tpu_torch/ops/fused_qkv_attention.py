@@ -21,6 +21,7 @@ import functools
 import torch
 
 from . import _build
+from ._plain_backward import PlainBackward
 
 __all__ = ["fused_qkv_attention", "fused_qkv_attention_reference"]
 
@@ -32,18 +33,20 @@ def fused_qkv_attention_reference(qkv: torch.Tensor, n_heads: int,
     """Plain PyTorch version of the kernel: f32 scores scaled by dh^-0.5,
     causal mask at finfo(f32).min, f32 softmax, probabilities cast to the
     input dtype, P.V accumulated in f32 and cast to the input dtype (the math
-    of the TPU kernel `_kernel`; at f32 it equals its einsum `_reference`)."""
+    of the TPU kernel `_kernel`; at f32 it equals its einsum `_reference`).
+    A float64 input stays in float64 throughout."""
     B, T, C3 = qkv.shape
     C = C3 // 3
     dh = C // n_heads
-    q, k, v = (t.reshape(B, T, n_heads, dh).transpose(1, 2).float()
+    acc = torch.promote_types(qkv.dtype, torch.float32)
+    q, k, v = (t.reshape(B, T, n_heads, dh).transpose(1, 2).to(acc)
                for t in qkv.split(C, dim=-1))
     scores = torch.matmul(q, k.transpose(-1, -2)) * dh ** -0.5
     if causal:
         keep = torch.ones(T, T, dtype=torch.bool, device=qkv.device).tril()
-        scores = scores.masked_fill(~keep, torch.finfo(torch.float32).min)
+        scores = scores.masked_fill(~keep, torch.finfo(acc).min)
     probs = torch.softmax(scores, dim=-1).to(qkv.dtype)
-    out = torch.matmul(probs.float(), v)
+    out = torch.matmul(probs.to(acc), v)
     return out.transpose(1, 2).reshape(B, T, C).to(qkv.dtype)
 
 
@@ -104,23 +107,6 @@ def _launch(qkv: torch.Tensor, n_heads: int, causal: bool) -> torch.Tensor:
     return out
 
 
-class _FusedQKVAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, qkv, n_heads, causal):
-        ctx.save_for_backward(qkv)
-        ctx.n_heads, ctx.causal = n_heads, causal
-        return _launch(qkv, n_heads, causal)
-
-    @staticmethod
-    def backward(ctx, grad):
-        (qkv,) = ctx.saved_tensors
-        with torch.enable_grad():
-            x = qkv.detach().requires_grad_()
-            y = fused_qkv_attention_reference(x, ctx.n_heads, ctx.causal)
-        (gx,) = torch.autograd.grad(y, x, grad)
-        return gx, None, None
-
-
 def fused_qkv_attention(qkv: torch.Tensor, n_heads: int,
                         causal: bool = False) -> torch.Tensor:
     """Attention over the packed projection: qkv (B, T, 3C) -> (B, T, C).
@@ -130,7 +116,8 @@ def fused_qkv_attention(qkv: torch.Tensor, n_heads: int,
     _check(qkv, n_heads)
     if qkv.device.type == "cpu":
         return fused_qkv_attention_reference(qkv, n_heads, causal)
-    return _FusedQKVAttention.apply(qkv, n_heads, causal)
+    return PlainBackward.apply(_launch, fused_qkv_attention_reference,
+                               {"n_heads": n_heads, "causal": causal}, qkv)
 
 
 fused_qkv_attention.launches = 0

@@ -9,13 +9,12 @@ that on a GPU machine without JAX the `cuda` tests of this file run alone:
     python -m pytest tests/test_torch_fused_norm.py -m cuda --noconftest
 """
 
-from unittest import mock
-
 import numpy as np
 import pytest
 import torch
 
 from mdt_policy_tpu_torch.ops import fused_norm as fn
+from mdt_policy_tpu_torch.ops._plain_backward import PlainBackward
 from mdt_policy_tpu_torch.ops.fused_norm import (
     fused_layer_norm, fused_layer_norm_reference, fused_rms_norm,
     fused_rms_norm_reference)
@@ -136,24 +135,24 @@ def test_autograd_function_backward_is_plain_backward(weights_grad):
     rng = np.random.default_rng(3)
     x0, w0, b0 = (torch.from_numpy(a) for a in _arrays((4, 5, 16), 3))
     up = torch.from_numpy(rng.normal(size=(4, 5, 16)).astype(np.float32))
-    with mock.patch.object(fn, "_launch", fn._reference):
-        for kind in ("ln", "rms"):
-            leaves = [x0.clone().requires_grad_()] + [
-                t.clone().requires_grad_(weights_grad) for t in (w0, b0)]
-            refs = [t.detach().clone().requires_grad_(t.requires_grad) for t in leaves]
-            if kind == "ln":
-                out = fn._FusedNorm.apply(*leaves, 1e-5)
-                ref = fused_layer_norm_reference(*refs, 1e-5)
+    for kind in ("ln", "rms"):
+        leaves = [x0.clone().requires_grad_()] + [
+            t.clone().requires_grad_(weights_grad) for t in (w0, b0)]
+        refs = [t.detach().clone().requires_grad_(t.requires_grad) for t in leaves]
+        if kind == "ln":
+            out = PlainBackward.apply(fn._reference, fn._reference, {"eps": 1e-5}, *leaves)
+            ref = fused_layer_norm_reference(*refs, 1e-5)
+        else:
+            out = PlainBackward.apply(fn._reference, fn._reference, {"eps": 1e-8},
+                                      *leaves[:2], None)
+            ref = fused_rms_norm_reference(*refs[:2], 1e-8)
+        (out * up).sum().backward()
+        (ref * up).sum().backward()
+        for a, r in zip(leaves, refs):
+            if r.grad is None:
+                assert a.grad is None
             else:
-                out = fn._FusedNorm.apply(*leaves[:2], None, 1e-8)
-                ref = fused_rms_norm_reference(*refs[:2], 1e-8)
-            (out * up).sum().backward()
-            (ref * up).sum().backward()
-            for a, r in zip(leaves, refs):
-                if r.grad is None:
-                    assert a.grad is None
-                else:
-                    torch.testing.assert_close(a.grad, r.grad, rtol=1e-4, atol=1e-6)
+                torch.testing.assert_close(a.grad, r.grad, rtol=1e-4, atol=1e-6)
 
 
 def test_plain_versions_pass_gradcheck():

@@ -220,6 +220,9 @@ def test_port_imports_without_jax():
             "import mdt_policy_tpu_torch as pkg\n"
             "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'mdt_policy_tpu_torch.')]\n"
             "assert len(names) > 20, names\n"
+            "for needed in ('ops.attention_halfblock', 'ops.mlp_halfblock', "
+            "'data.extract_embeddings', 'data.transforms', 'utils.clip_tokenizer'):\n"
+            "    assert 'mdt_policy_tpu_torch.' + needed in names, needed\n"
             "for name in names + ['chip_smoke']:\n"
             "    __import__(name)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
