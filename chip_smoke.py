@@ -3,43 +3,61 @@
 
     python3 chip_smoke.py        # from the root of the repository
 
-Drives the port's four paths at the production width (`MDTVConfig()`,
-seeded random weights): the MDT-V closed-loop replan through `MDTVPolicy`,
-the dual-modality train step through `train_step` at B=128 per stream, the
-frozen-tower embedding extraction through `extract_embeddings` and
-`extract_lang_goals` over a synthetic split, and the cache-mode train step
-from the rows it wrote. Prints one JSON line per phase:
+Drives the port's paths at the production widths (`MDTVConfig()` and
+`MDTConfig()`, seeded random weights): the MDT-V and the MDT closed-loop
+replans through `MDTVPolicy` (alias `MDTPolicy`), CALVIN's chain evaluation
+on the fake env through `evaluate_policy` and `evaluate_policy_batched`
+for both, the dual-modality train step through `train_step` at B=128 per
+stream, the frozen-tower embedding extraction through `extract_embeddings`
+and `extract_lang_goals` over a synthetic split, and the cache-mode train
+step from the rows it wrote. Prints one JSON line per phase:
 
-  1. device   card name and power limit (nvidia-smi); TF32 off.
+  1. device   card name and power limit (nvidia-smi); TF32 off for f32
+              matmuls and convolutions.
   2. build    nvcc of every kernel source, all started together, in seconds.
-  3. kernel   each kernel against its plain PyTorch version on the card at
-              the paths' shapes, bf16 and f32, with CUDA-event times of the
-              kernel, the plain version and the PyTorch library call, the
-              kernel's device time from the profiler (`device_ms`), and the
-              least time the card could take (`bound_ms`).
-  4. replan   reset() and 20 step() calls at B=1; B1 launches must be 24
-              then 12, B3 launches 50 then 25.
+  3. kernel   B1, B3 and B2 against their plain PyTorch versions on the card
+              at the paths' shapes, bf16 and f32, with CUDA-event times of
+              the kernel, the plain version and the PyTorch library call,
+              the kernel's device time from the profiler (`device_ms`), and
+              the least time the card could take (`bound_ms`); B2 at the
+              replans' shapes at B=1 and B=32 and the four of the JAX
+              package's ops/bench_pallas.py. Then B4 and B5 (the attention
+              and MLP half-blocks) at the extraction's six shapes against
+              their plain versions in bf16 and in float64, with the kernel,
+              device, plain and unfused route (B3 + F.linear + B1 or the
+              activation + F.linear) times; device kernels per call must be
+              3 (B4) and 2 (B5).
+  4. replan   MDT-V: reset() and 20 step() calls at B=1; per replan B1 24
+              then 12, B3 50 then 25, B2 44 and 44 (4 encoder blocks + 4
+              decoder blocks x 10 DDIM steps).
   5. e2e      the same replan through the kernels and through the plain
               versions: the (1, 10, 7) chunks must agree.
   6. timing   replan p50/p90 at B=1 and B=32, goal-encode time; then 5
               replans under the profiler (device events and busy share).
-  7. train    3 train steps at B=128 per stream: finite losses and
+  7. b2_ab    MDT-V replan p50/p90 at B=1 and B=32 with B2 and with B2
+              swapped alone for `sdpa`, in turns (B2, sdpa, sdpa, B2).
+  8. replan, e2e, timing  the same three for MDT: B1 12 then 0, B3 25 then
+              0, B2 64 and 64 (4 + 6 x 10) per replan.
+  9. rollout  per family, `evaluate_policy` over 4 chains (200 px static,
+              84 px gripper frames, episodes of 360 steps) through
+              `make_rollout_policy`, a scripted oracle solving every task at
+              25 steps but one that never solves: results, env steps and
+              replans per chain must follow from that rule, actions finite;
+              env steps/s and replans/s. Then `evaluate_policy_batched`
+              over 32 fake envs and 32 chains, one B=32 replan per policy
+              call: results and policy calls by the same rule.
+ 10. train    3 train steps at B=128 per stream: finite losses and
               grad_norm, trainables and EMA moved, frozen towers not; per
-              step 60 B1 and 157 B3 launches.
-  8. train_e2e  one step from the same state and draws through the kernels
+              step 60 B1, 157 B3 and 0 B2 launches (dropout is on).
+ 11. train_e2e  one step from the same state and draws through the kernels
               and through the plain versions: losses and grad_norm agree.
-  9. train_timing  step ms p50/p90 over 10 steps after 3 warm-up steps,
+ 12. train_timing  step ms p50/p90 over 10 steps after 3 warm-up steps,
               chunks/s, peak memory; then a profiled window of 2 steps.
- 10. kernel   B4 and B5 (the attention and MLP half-blocks) at the
-              extraction's six shapes against their plain versions in bf16
-              and in float64, with the kernel, device, plain and unfused
-              route (B3 + F.linear + B1 or the activation + F.linear) times;
-              device kernels per call must be 3 (B4) and 2 (B5).
- 11. extract  512 synthetic frames (200 px static, 84 px gripper) at batch
+ 13. extract  512 synthetic frames (200 px static, 84 px gripper) at batch
               64 with one shift variant, and 512 annotation sentences: file
               layout, the bit-exact self-check, B4/B5 and B3 launches, the
               first batch against the B1 + B3 route; frames/s of both routes.
- 12. cache_train  3 train steps at B=128 per stream from the written cache:
+ 14. cache_train  3 train steps at B=128 per stream from the written cache:
               no tower kernel, B3 only at the decoder and the MAP head; one
               step kernels vs plain; one validation step; step times and a
               profiled window.
@@ -102,13 +120,32 @@ NORM_SHAPES = (
 NORM_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
 # Bound on the replan chunk, kernel path vs plain path, relative to
 # max(1, max|chunk|): the towers are bf16, so a one-ulp difference in a token
-# (3.9e-3 relative) can propagate through the perceiver into the f32 denoiser.
+# (3.9e-3 relative) can propagate through the perceiver (MDT-V) or the goal
+# embedding (both families) into the f32 denoiser, whose B2 differs from its
+# plain version by summation order only.
 E2E_REL_TOL = 2e-2
 # Bound on the train step's losses and grad_norm, kernel path vs plain path,
 # relative to max(1, |value|): the same bf16 one-ulp differences in the
 # frozen towers' outputs, averaged over 128 samples per scope.
 TRAIN_E2E_REL_TOL = 2e-2
 REPLANS_TIMED = 100
+REPLANS_AB = 25  # per turn of the B2 / sdpa A/B (4 turns)
+# B2 (name, B, H, T, D, causal): the denoisers' self-attention at the
+# replan's B=1 (MDT-V: 4-token encoder, 10-token causal decoder, D=48; MDT:
+# 3-token encoder, causal decoder, D=64), the same at the batched rollout's
+# B=32, and the four shapes of the JAX package's ops/bench_pallas.py
+SMALL_SEQ_SHAPES = (
+    ("mdtv_enc", 1, 8, 4, 48, False), ("mdtv_dec", 1, 8, 10, 48, True),
+    ("mdt_enc", 1, 8, 3, 64, False), ("mdt_dec", 1, 8, 10, 64, True),
+    ("mdtv_enc_b32", 32, 8, 4, 48, False), ("mdtv_dec_b32", 32, 8, 10, 48, True),
+    ("mdt_enc_b32", 32, 8, 3, 64, False), ("mdt_dec_b32", 32, 8, 10, 64, True),
+    ("bench_dec_T10", 1024, 8, 10, 48, True), ("bench_enc_T4", 1024, 8, 4, 48, False),
+    ("bench_enc_T23", 1024, 8, 23, 48, False), ("bench_dec_T10_B4096", 4096, 8, 10, 48, True),
+)
+# rollout phase: CALVIN's camera sizes, chains and episode length, and the
+# scripted oracle's step at which every task but one solves
+ROLLOUT_CHAINS, ROLLOUT_EP_LEN, ROLLOUT_SOLVE_AT = 4, 360, 25
+BATCHED_ENVS = 32
 TRAIN_BATCH = 128  # per stream (configs/mdtv_calvin_d.yaml: batch_size)
 TRAIN_STEPS_TIMED = 10
 # B4/B5 (kernel, tower, B, T, C, heads or hidden width): extraction at batch
@@ -143,6 +180,17 @@ EXTRACT_SENTENCES = 512
 # cuBLAS before), a few bf16 ulps (3.9e-3 relative each) through 12 blocks;
 # the bf16 tower bound of the port's CPU tests (5e-2).
 EXTRACT_ROUTE_TOL = 5e-2
+
+
+def small_seq_bound(dtype_name: str, ref, v) -> float:
+    """|B2 - plain| bound. f32: summation order only, 1e-5 relative to
+    max(1, max|ref|). bf16: one bf16 ulp of the largest output (2^-7
+    relative at the top of its binade) plus one flipped rounding of a
+    probability (2^-8) times the largest |v|."""
+    amax = max(1.0, ref.float().abs().max().item())
+    if dtype_name == "float32":
+        return 1e-5 * amax
+    return 2.0 ** -7 * amax + 2.0 ** -8 * v.float().abs().max().item()
 
 
 def emit(obj) -> None:
@@ -327,6 +375,47 @@ def phase_kernel_b3(torch, device):
     return rows
 
 
+def phase_kernel_b2(torch, device):
+    """B2 against its plain version on the transposed (B, T, H, D) views the
+    denoisers pass, at SMALL_SEQ_SHAPES in f32 and bf16, with the times of
+    the kernel, its device kernel, the plain version and
+    F.scaled_dot_product_attention."""
+    import torch.nn.functional as F
+    from mdt_policy_tpu_torch.ops.small_seq_mha import small_seq_mha, small_seq_mha_reference
+    gen = torch.Generator(device).manual_seed(2)
+    rows = []
+    for name, B, H, T, D, causal in SMALL_SEQ_SHAPES:
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            q, k, v = (torch.randn((B, T, H, D), generator=gen, device=device).to(dtype)
+                       .transpose(1, 2) for _ in range(3))
+            out = small_seq_mha(q, k, v, causal)
+            ref = small_seq_mha_reference(q, k, v, causal)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            bound = small_seq_bound(dtype_name, ref, v)
+            iters = 50 if B >= 1024 else 200
+            pairs = T * (T + 1) // 2 if causal else T * T
+            bms, by = bound_ms(4 * q.numel() * q.element_size(), 4 * B * H * pairs * D,
+                               dtype_name)
+            row = {"phase": "kernel", "kernel": "small_seq_mha", "shape": name,
+                   "q": [B, H, T, D], "causal": causal, "dtype": dtype_name,
+                   "max_abs_err": err, "bound": bound,
+                   "ms": event_ms(lambda: small_seq_mha(q, k, v, causal), iters, torch),
+                   "device_ms": device_ms(lambda: small_seq_mha(q, k, v, causal),
+                                          "small_seq_mha_kernel", 20, torch),
+                   "plain_ms": event_ms(lambda: small_seq_mha_reference(q, k, v, causal),
+                                        iters, torch),
+                   "library_ms": event_ms(lambda: F.scaled_dot_product_attention(
+                       q, k, v, is_causal=causal), iters, torch),
+                   "bound_ms": bms, "bound_by": by}
+            emit(row)
+            if not err <= bound:
+                raise AssertionError(f"B2 disagrees with its plain version: {row}")
+            rows.append(row)
+    return rows
+
+
 def make_inputs(torch, cfg, batch: int, seed: int, device):
     """Camera frames (B, 1, H, W, 3) and a 77-token goal whose EOT id is its
     largest, drawn from a seeded generator."""
@@ -346,8 +435,11 @@ def make_tokens(torch, cfg, batch: int, gen):
 
 
 def build_net(torch, cfg, device):
-    from mdt_policy_tpu_torch.agents import MDTVAgentNet, init_random_
-    net = MDTVAgentNet(cfg, device=device)
+    """The agent of `cfg`'s family (MDTConfig: MDT, else MDT-V) with seeded
+    random weights."""
+    from mdt_policy_tpu_torch.agents import (MDTAgentNet, MDTConfig, MDTVAgentNet,
+                                             init_random_)
+    net = (MDTAgentNet if isinstance(cfg, MDTConfig) else MDTVAgentNet)(cfg, device=device)
     init_random_(net, torch.Generator().manual_seed(0))
     return net
 
@@ -360,11 +452,13 @@ class Launches:
         from mdt_policy_tpu_torch.ops.fused_norm import fused_layer_norm, fused_rms_norm
         from mdt_policy_tpu_torch.ops.fused_qkv_attention import fused_qkv_attention
         from mdt_policy_tpu_torch.ops.mlp_halfblock import mlp_halfblock
+        from mdt_policy_tpu_torch.ops.small_seq_mha import small_seq_mha
         self.fns = {"fused_qkv_attention": fused_qkv_attention,
                     "fused_layer_norm": fused_layer_norm,
                     "fused_rms_norm": fused_rms_norm,
                     "attention_halfblock": attention_halfblock,
-                    "mlp_halfblock": mlp_halfblock}
+                    "mlp_halfblock": mlp_halfblock,
+                    "small_seq_mha": small_seq_mha}
 
     def reset(self):
         for fn in self.fns.values():
@@ -374,7 +468,32 @@ class Launches:
         return {name: fn.launches for name, fn in self.fns.items()}
 
 
-def phase_replan(torch, net, device, launches: Launches):
+def b2_per_replan(cfg):
+    """Self-attentions of one replan: each encoder block once, each decoder
+    block at every step of the sampler (len(schedule) - 1 denoiser calls)."""
+    from mdt_policy_tpu_torch.diffusion import get_noise_schedule
+    steps = len(get_noise_schedule(cfg.num_sampling_steps, cfg.noise_scheduler,
+                                   cfg.sigma_min, cfg.sigma_max)) - 1
+    return cfg.n_enc_layers + cfg.n_dec_layers * steps
+
+
+def expected_replan_launches(cfg, family: str):
+    """Launches of the first replan (the text goal encoded) and of a later
+    one (the goal cached). B1 one per Voltron block (MDT-V) and per causal
+    text block; B3 two RMSNorms per Voltron block and its encoder_norm
+    (MDT-V), two LayerNorms per text block and ln_final; B2 at every
+    self-attention of the denoiser. MDT's ResNets and GroupNorms run no
+    kernel of the port."""
+    camera = {"fused_qkv_attention": cfg.vit_depth, "fused_layer_norm": 1,
+              "fused_rms_norm": 2 * cfg.vit_depth} if family == "mdtv" else \
+        {"fused_qkv_attention": 0, "fused_layer_norm": 0, "fused_rms_norm": 0}
+    text = {"fused_qkv_attention": cfg.clip_text_layers,
+            "fused_layer_norm": 2 * cfg.clip_text_layers + 1, "fused_rms_norm": 0}
+    rest = {**NO_HALFBLOCKS, "small_seq_mha": b2_per_replan(cfg)}
+    return [{**{k: camera[k] + text[k] for k in camera}, **rest}, {**camera, **rest}]
+
+
+def phase_replan(torch, net, device, launches: Launches, family: str):
     """reset() and 20 step() calls at B=1, counting launches per replan."""
     from mdt_policy_tpu_torch.agents import MDTVPolicy
     cfg = net.cfg
@@ -396,27 +515,22 @@ def phase_replan(torch, net, device, launches: Launches):
     ok = all(tuple(a.shape) == (1, cfg.action_dim) for a in actions) \
         and bool(torch.isfinite(acts).all())
     b3 = [r["fused_layer_norm"] + r["fused_rms_norm"] for r in per_replan]
-    emit({"phase": "replan", "steps": 20, "launches_per_replan": per_replan,
+    expected = expected_replan_launches(cfg, family)
+    emit({"phase": "replan", "family": family, "steps": 20,
+          "launches_per_replan": per_replan, "expected_per_replan": expected,
           "b1_per_replan": [r["fused_qkv_attention"] for r in per_replan],
-          "b3_per_replan": b3, "launches": total,
-          "actions_finite_and_shaped": ok, "first_action": actions[0].tolist()})
+          "b3_per_replan": b3, "b2_per_replan": [r["small_seq_mha"] for r in per_replan],
+          "launches": total, "actions_finite_and_shaped": ok,
+          "first_action": actions[0].tolist()})
     if not ok:
         raise AssertionError("replan produced non-finite or misshaped actions")
-    # Voltron blocks (+ causal text blocks on the first replan; then the goal
-    # is cached): B1 one per block; B3 two RMSNorms per Voltron block and
-    # its encoder_norm, two LayerNorms per text block and ln_final
-    text_ln = 2 * cfg.clip_text_layers + 1
-    expected = [{"fused_qkv_attention": cfg.vit_depth + cfg.clip_text_layers,
-                 "fused_layer_norm": 1 + text_ln, "fused_rms_norm": 2 * cfg.vit_depth,
-                 **NO_HALFBLOCKS},
-                {"fused_qkv_attention": cfg.vit_depth, "fused_layer_norm": 1,
-                 "fused_rms_norm": 2 * cfg.vit_depth, **NO_HALFBLOCKS}]
     if per_replan != expected:
-        raise AssertionError(f"launches per replan {per_replan}, expected {expected}")
+        raise AssertionError(f"{family} launches per replan {per_replan}, expected {expected}")
     return total
 
 
 NO_HALFBLOCKS = {"attention_halfblock": 0, "mlp_halfblock": 0}
+NO_DENOISER = {"small_seq_mha": 0}
 
 
 def plain_kernels():
@@ -426,7 +540,9 @@ def plain_kernels():
                                                      fused_rms_norm_reference)
     from mdt_policy_tpu_torch.ops.fused_qkv_attention import (
         fused_qkv_attention_reference)
-    patches = [mock.patch.object(voltron_vit, "fused_qkv_attention",
+    from mdt_policy_tpu_torch.ops.small_seq_mha import small_seq_mha_reference
+    patches = [mock.patch.object(blocks, "small_seq_mha", small_seq_mha_reference),
+               mock.patch.object(voltron_vit, "fused_qkv_attention",
                                  fused_qkv_attention_reference),
                mock.patch.object(clip, "fused_qkv_attention",
                                  fused_qkv_attention_reference),
@@ -438,7 +554,15 @@ def plain_kernels():
     return stack
 
 
-def phase_e2e(torch, net, device, launches: Launches):
+def b2_as_sdpa():
+    """Swaps kernel B2 alone for the plain `sdpa` route the denoisers took
+    before it (the route of the A/B timing)."""
+    from mdt_policy_tpu_torch.models import blocks
+    return mock.patch.object(blocks, "small_seq_mha",
+                             lambda q, k, v, causal=False: blocks.sdpa(q, k, v, causal=causal))
+
+
+def phase_e2e(torch, net, device, launches: Launches, family: str):
     """One replan through the kernels and through the plain versions."""
     from mdt_policy_tpu_torch.agents import denoise_actions
     obs, goal = make_inputs(torch, net.cfg, 1, seed=2, device=device)
@@ -459,7 +583,7 @@ def phase_e2e(torch, net, device, launches: Launches):
         raise AssertionError("the plain path launched a kernel")
     err = (kernel_chunk - plain_chunk).abs().max().item()
     scale = max(1.0, plain_chunk.abs().max().item())
-    row = {"phase": "e2e", "chunk_shape": list(kernel_chunk.shape),
+    row = {"phase": "e2e", "family": family, "chunk_shape": list(kernel_chunk.shape),
            "max_abs_err": err, "max_abs_chunk": plain_chunk.abs().max().item(),
            "bound": E2E_REL_TOL * scale,
            "finite": bool(torch.isfinite(kernel_chunk).all())}
@@ -469,51 +593,215 @@ def phase_e2e(torch, net, device, launches: Launches):
     return err
 
 
-def time_replans(torch, net, batch: int, device):
-    """Replan latency at `batch` parallel envs (goal cached): CUDA events
-    around policy.step() with the action fetched to the host; then 5
-    replans under torch.profiler."""
+def replanner(torch, net, batch: int, device, seed: int = 4):
+    """A policy at `batch` parallel envs whose goal is encoded and cached,
+    and a function that runs one replan and fetches the action to the host."""
     from mdt_policy_tpu_torch.agents import MDTVPolicy
-    obs, goal = make_inputs(torch, net.cfg, batch, seed=4, device=device)
-    policy = MDTVPolicy(net, generator=torch.Generator(device).manual_seed(5))
+    obs, goal = make_inputs(torch, net.cfg, batch, seed=seed, device=device)
+    policy = MDTVPolicy(net, generator=torch.Generator(device).manual_seed(seed + 1))
     policy.step(obs, goal)  # encodes and caches the goal
 
     def replan():
         policy.rollout_step_counter = 0  # the next step replans
         return policy.step(obs, goal).cpu()
+    return replan, goal
 
+
+def event_times(torch, fn, n: int, warmup: int = 3):
+    """CUDA-event milliseconds of each of `n` calls of `fn`, after warm-up."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     times = []
-    for i in range(3 + REPLANS_TIMED):
+    for i in range(warmup + n):
         torch.cuda.synchronize()
         start.record()
-        replan()
+        fn()
         end.record()
         torch.cuda.synchronize()
-        if i >= 3:
+        if i >= warmup:
             times.append(start.elapsed_time(end))
-    encode_ms = event_ms(lambda: net.encode_language_goal(goal["lang_tokens"]),
-                         20, torch)
-    return times, encode_ms, profile_calls(torch, replan, 5)
+    return times
 
 
-def phase_timing(torch, net, device, smi):
+def phase_timing(torch, net, device, smi, family: str):
+    """Replan latency at B=1 and B=32 (goal cached): CUDA events around
+    policy.step() with the action fetched to the host; the goal encode; then
+    5 replans under torch.profiler."""
     rows = {}
     for batch in (1, 32):
         torch.cuda.reset_peak_memory_stats()
-        times, encode_ms, prof = time_replans(torch, net, batch, device)
-        row = {"phase": "timing", "batch": batch, "replans": len(times),
+        replan, goal = replanner(torch, net, batch, device)
+        times = event_times(torch, replan, REPLANS_TIMED)
+        encode_ms = event_ms(lambda: net.encode_language_goal(goal["lang_tokens"]), 20, torch)
+        row = {"phase": "timing", "family": family, "batch": batch, "replans": len(times),
                "replan_ms_p50": float(np.percentile(times, 50)),
                "replan_ms_p90": float(np.percentile(times, 90)),
                "replan_ms_min": min(times), "replan_ms_max": max(times),
                "goal_encode_ms": encode_ms,
-               "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-               "card": smi}
+               "peak_mem_bytes": torch.cuda.max_memory_allocated(), "card": smi}
         emit(row)
-        emit({"phase": "replan_profile", "batch": batch, **prof, "card": smi})
+        emit({"phase": "replan_profile", "family": family, "batch": batch,
+              **profile_calls(torch, replan, 5), "card": smi})
         rows[batch] = row
     return rows
+
+
+def phase_b2_ab(torch, net, device, smi):
+    """MDT-V replan p50 with B2 routed and with B2 swapped alone for `sdpa`,
+    in turns (B2, sdpa, sdpa, B2) of REPLANS_AB replans each, at B=1 and
+    B=32; device events per replan of both routes from the profiler."""
+    rows = []
+    for batch in (1, 32):
+        replan, _ = replanner(torch, net, batch, device, seed=20)
+        times = {"b2": [], "sdpa": []}
+        for route in ("b2", "sdpa", "sdpa", "b2"):
+            with b2_as_sdpa() if route == "sdpa" else contextlib.nullcontext():
+                times[route] += event_times(torch, replan, REPLANS_AB)
+        with b2_as_sdpa():
+            sdpa_prof = profile_calls(torch, replan, 3)
+        b2_prof = profile_calls(torch, replan, 3)
+        row = {"phase": "b2_ab", "family": "mdtv", "batch": batch,
+               "replans_per_route": len(times["b2"]),
+               **{f"replan_ms_p50_{r}": float(np.percentile(t, 50)) for r, t in times.items()},
+               **{f"replan_ms_p90_{r}": float(np.percentile(t, 90)) for r, t in times.items()},
+               "device_events_per_replan_b2": b2_prof["device_events_per_call"],
+               "device_events_per_replan_sdpa": sdpa_prof["device_events_per_call"],
+               "device_ms_per_replan_b2": b2_prof["device_ms_per_call"],
+               "device_ms_per_replan_sdpa": sdpa_prof["device_ms_per_call"],
+               "card": smi}
+        emit(row)
+        rows.append(row)
+    return rows
+
+def oracle_results(seqs, never):
+    """Chain scores under the scripted oracle: every task solves
+    ROLLOUT_SOLVE_AT steps into its rollout except `never`, so a chain
+    scores the tasks before its first `never`."""
+    return [next((j for j, t in enumerate(chain) if t == never), 5) for _, chain in seqs]
+
+
+def expected_rollout(results, multistep: int):
+    """Env steps and replans of each chain under that oracle: a solved task
+    takes ROLLOUT_SOLVE_AT steps, the failed one the whole episode; a replan
+    every `multistep` steps."""
+    replans = lambda steps: -(-steps // multistep)
+    steps = [ROLLOUT_SOLVE_AT * r + (ROLLOUT_EP_LEN if r < 5 else 0) for r in results]
+    plans = [replans(ROLLOUT_SOLVE_AT) * r + (replans(ROLLOUT_EP_LEN) if r < 5 else 0)
+             for r in results]
+    return steps, plans
+
+
+def expected_batched_replans(results, multistep: int):
+    """Policy calls of one wave of the batched loop: per subtask position,
+    the wave runs until its slowest live env is done."""
+    calls = 0
+    for j in range(5):
+        live = [r for r in results if r >= j]
+        if not live:
+            break
+        ticks = ROLLOUT_EP_LEN if any(r == j for r in live) else ROLLOUT_SOLVE_AT
+        calls += -(-ticks // multistep)
+    return calls
+
+
+class WatchedPolicy:
+    """A rollout policy that counts its steps and checks that every action
+    is finite and (1, action_dim)."""
+
+    def __init__(self, policy, action_dim: int):
+        self.policy, self.action_dim = policy, action_dim
+        self.steps, self.ok = 0, True
+
+    def reset(self):
+        self.policy.reset()
+
+    def step(self, obs, goal):
+        action = self.policy.step(obs, goal)
+        self.steps += 1
+        self.ok &= action.shape == (1, self.action_dim) and bool(np.isfinite(action).all())
+        return action
+
+
+def phase_rollout(torch, nets, device, launches: Launches, smi):
+    """CALVIN's chain evaluation on the fake env at CALVIN's camera sizes
+    (200 px static, 84 px gripper) for each agent family: `evaluate_policy`
+    over ROLLOUT_CHAINS chains through `make_rollout_policy`, one chain at a
+    time, then `evaluate_policy_batched` over BATCHED_ENVS envs and as many
+    chains, one B=BATCHED_ENVS replan per policy call. The scripted oracle
+    solves every task at ROLLOUT_SOLVE_AT steps except the third task of the
+    first chain, which never solves; results, env steps and replans must be
+    the ones that rule gives."""
+    from mdt_policy_tpu_torch.evaluation import (BatchedPolicyAdapter, FakeEnv,
+                                                 ScriptedOracle, TASKS, evaluate_policy,
+                                                 evaluate_policy_batched, get_sequences,
+                                                 make_batched_predict, make_rollout_policy)
+    from mdt_policy_tpu_torch.evaluation.annotations import make_goal_fn
+    never = get_sequences(ROLLOUT_CHAINS)[0][1][2]
+    oracle = ScriptedOracle({t: ROLLOUT_SOLVE_AT for t in TASKS if t != never})
+    launches.reset()
+    rows = []
+    for family, net in nets.items():
+        cfg = net.cfg
+        goal_fn = make_goal_fn(cfg.clip_context_length)
+        env = FakeEnv(img_hw=200, gripper_hw=84, seed=0)
+        policy = make_rollout_policy(net, generator=torch.Generator(device).manual_seed(30))
+        watched = WatchedPolicy(policy, cfg.action_dim)
+        want = oracle_results(get_sequences(ROLLOUT_CHAINS), never)
+        want_steps, want_plans = expected_rollout(want, cfg.multistep)
+        results, steps, plans = [], [], []
+        t0 = time.perf_counter()
+        with mock.patch.object(policy.inner, "plan", wraps=policy.inner.plan) as plan:
+            for i in range(ROLLOUT_CHAINS):
+                before_steps, before_plans = watched.steps, plan.call_count
+                results += evaluate_policy(watched, env, oracle, goal_fn,
+                                           num_sequences=ROLLOUT_CHAINS, ep_len=ROLLOUT_EP_LEN,
+                                           sequence_indices=[i], progress=False)
+                steps.append(watched.steps - before_steps)
+                plans.append(plan.call_count - before_plans)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        serial = {"phase": "rollout", "family": family, "loop": "serial",
+                  "chains": ROLLOUT_CHAINS, "ep_len": ROLLOUT_EP_LEN, "never_solves": never,
+                  "results": results, "expected": want, "env_steps": steps,
+                  "expected_env_steps": want_steps, "replans": plans,
+                  "expected_replans": want_plans, "actions_ok": watched.ok,
+                  "seconds": seconds, "env_steps_per_s": sum(steps) / seconds,
+                  "replans_per_s": sum(plans) / seconds, "card": smi}
+        emit(serial)
+        if not (results == want and steps == want_steps and plans == want_plans
+                and watched.ok):
+            raise AssertionError(f"serial rollout disagrees with the oracle's rule: {serial}")
+
+        calls = []
+        predict = make_batched_predict(net, generator=torch.Generator(device).manual_seed(31))
+
+        def counted(obs_batch, goals):
+            chunks = predict(obs_batch, goals)
+            calls.append(bool(np.isfinite(chunks).all()) and chunks.shape == (
+                len(goals), cfg.act_window_size, cfg.action_dim))
+            return chunks
+        envs = [FakeEnv(img_hw=200, gripper_hw=84, seed=i) for i in range(BATCHED_ENVS)]
+        want = oracle_results(get_sequences(BATCHED_ENVS), never)
+        t0 = time.perf_counter()
+        results = evaluate_policy_batched(
+            BatchedPolicyAdapter(counted, multistep=cfg.multistep), envs, oracle, goal_fn,
+            num_sequences=BATCHED_ENVS, ep_len=ROLLOUT_EP_LEN, progress=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        env_steps = sum(expected_rollout(want, cfg.multistep)[0])
+        batched = {"phase": "rollout", "family": family, "loop": "batched",
+                   "envs": BATCHED_ENVS, "chains": BATCHED_ENVS, "ep_len": ROLLOUT_EP_LEN,
+                   "results": results, "expected": want, "policy_calls": len(calls),
+                   "expected_policy_calls": expected_batched_replans(want, cfg.multistep),
+                   "chunks_ok": all(calls), "env_steps": env_steps, "seconds": seconds,
+                   "env_steps_per_s": env_steps / seconds,
+                   "replans_per_s": BATCHED_ENVS * len(calls) / seconds, "card": smi}
+        emit(batched)
+        if not (results == want and batched["chunks_ok"]
+                and len(calls) == batched["expected_policy_calls"]):
+            raise AssertionError(f"batched rollout disagrees with the oracle's rule: {batched}")
+        rows += [serial, batched]
+    return launches.read(), rows
 
 
 def make_train_batch(torch, cfg, batch: int, device):
@@ -551,7 +839,7 @@ def expected_train_launches(cfg):
             "fused_layer_norm": 2 * (1 + 2 * cfg.clip_vision_layers + 2)
             + 2 * cfg.clip_text_layers + 1,
             "fused_rms_norm": 2 * 2 * cfg.vit_depth
-            + 2 * (2 * cfg.gen_decoder_depth + 1) + 2 * 2, **NO_HALFBLOCKS}
+            + 2 * (2 * cfg.gen_decoder_depth + 1) + 2 * 2, **NO_HALFBLOCKS, **NO_DENOISER}
 
 
 def _frozen_and_trainable(torch, net):
@@ -643,7 +931,7 @@ def _device_events(torch, prof):
 def profile_calls(torch, fn, n: int):
     """`n` calls of `fn` under torch.profiler: wall and device ms per call,
     device events (kernels, copies, sets) per call, the device's busy share,
-    B1's and B3's shares of the device time, and the costliest kernels."""
+    the kernels' shares of the device time, and the costliest kernels."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -666,6 +954,7 @@ def profile_calls(torch, fn, n: int):
             "b1_share": share("fused_qkv_attention_kernel"),
             "b3_share": share("fused_norm_kernel"),
             "b4_b5_share": share("halfblock_"),
+            "b2_share": share("small_seq_mha_kernel"),
             "top_kernels_ms_per_call": [[k[:90], v / n] for k, v in top]}
 
 
@@ -865,7 +1154,8 @@ def phase_extract(torch, net, device, launches: Launches, smi, root):
                 # Voltron's encoder_norm, CLIP's ln_pre and ln_post; ln_final
                 "fused_layer_norm": 3 * fwd_calls + 1,
                 "attention_halfblock": per_batch * fwd_calls + cfg.clip_text_layers,
-                "mlp_halfblock": per_batch * fwd_calls + cfg.clip_text_layers}
+                "mlp_halfblock": per_batch * fwd_calls + cfg.clip_text_layers,
+                **NO_DENOISER}
     n_tokens = 2 * (cfg.img_size // cfg.vit_patch) ** 2
     shapes = {"ep_voltron_tokens.npy": ((EXTRACT_FRAMES, n_tokens, cfg.perceiver_dim), "uint16"),
               "ep_clip_img_emb.npy": ((EXTRACT_FRAMES, cfg.clip_embed_dim), "float32"),
@@ -961,7 +1251,8 @@ def expected_cache_train_launches(cfg):
     decoder's blocks and decoder_norm (each scope) and the MAP head's two
     norms (twice, lang scope)."""
     return {"fused_qkv_attention": 0, "fused_layer_norm": 0,
-            "fused_rms_norm": 2 * (2 * cfg.gen_decoder_depth + 1) + 2 * 2, **NO_HALFBLOCKS}
+            "fused_rms_norm": 2 * (2 * cfg.gen_decoder_depth + 1) + 2 * 2, **NO_HALFBLOCKS,
+            **NO_DENOISER}
 
 
 def phase_cache_train(torch, net, device, launches: Launches, smi, out):
@@ -1027,20 +1318,29 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from mdt_policy_tpu_torch.agents import MDTVConfig
+    from mdt_policy_tpu_torch.agents import MDTConfig, MDTVConfig
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
 
     smi = phase_device(torch)
     phase_build()
-    b1_rows = phase_kernel_b1(torch, device)
-    b3_rows = phase_kernel_b3(torch, device)
-    hb_rows = phase_kernel_halfblocks(torch, device)
-    net = build_net(torch, MDTVConfig(), device)
+    rows = {"b1": phase_kernel_b1(torch, device), "b3": phase_kernel_b3(torch, device),
+            "b2": phase_kernel_b2(torch, device),
+            "hb": phase_kernel_halfblocks(torch, device)}
     launches = Launches()
-    paths = {"replan": phase_replan(torch, net, device, launches)}
-    phase_e2e(torch, net, device, launches)
-    phase_timing(torch, net, device, smi)
+    net = build_net(torch, MDTVConfig(), device)
+    paths = {"replan": phase_replan(torch, net, device, launches, "mdtv")}
+    phase_e2e(torch, net, device, launches, "mdtv")
+    phase_timing(torch, net, device, smi, "mdtv")
+    phase_b2_ab(torch, net, device, smi)
+    mdt = build_net(torch, MDTConfig(), device)
+    paths["mdt_replan"] = phase_replan(torch, mdt, device, launches, "mdt")
+    phase_e2e(torch, mdt, device, launches, "mdt")
+    phase_timing(torch, mdt, device, smi, "mdt")
+    paths["rollout"], _ = phase_rollout(torch, {"mdtv": net, "mdt": mdt}, device,
+                                        launches, smi)
+    del mdt
+    torch.cuda.empty_cache()
     state, batch, paths["train"] = phase_train(torch, net, device, launches)
     phase_train_e2e(torch, state, batch, device, launches)
     phase_train_timing(torch, state, batch, device, smi)
@@ -1050,37 +1350,38 @@ def main() -> int:
         paths["extract"] = phase_extract(torch, net, device, launches, smi, root)
         paths["cache_train"] = phase_cache_train(torch, net, device, launches, smi,
                                                  os.path.join(root, "extracted"))
-    emit(summary(b1_rows, b3_rows, hb_rows, paths))
+    emit(summary(rows, paths))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
 
 
-def summary(b1_rows, b3_rows, hb_rows, paths):
-    """The kernels line: each kernel at its main bf16 shape, with its
-    launches on each path; fails if a kernel was not launched on one of the
-    paths it belongs to."""
-
-    def main_row(rows, kernel, shape):
-        return next(r for r in rows if r["kernel"] == kernel and r["shape"] == shape
-                    and r["dtype"] == "bfloat16")
-
+def summary(rows, paths):
+    """The kernels line: each kernel at its main shape (bf16 for the towers'
+    kernels, f32 for B2, whose path is the f32 denoiser), with its launches
+    on each path; fails if a kernel was not launched on one of the paths it
+    belongs to."""
+    replans = ("replan", "mdt_replan", "rollout")
     entries = []
-    for name, source, replaces, rows, shape, own in (
+    for name, source, replaces, kind, shape, dtype, own in (
             ("fused_qkv_attention", "fused_qkv_attention.cu",
-             "mdt_policy_tpu/ops/fused_qkv_attention.py:124", b1_rows, "voltron_train",
-             ("replan", "train")),
+             "mdt_policy_tpu/ops/fused_qkv_attention.py:124", "b1", "voltron_train",
+             "bfloat16", replans + ("train",)),
             ("fused_layer_norm", "fused_norm.cu", "mdt_policy_tpu/ops/fused_norm.py:134",
-             b3_rows, "clip_vision_train", ("replan", "train", "extract")),
+             "b3", "clip_vision_train", "bfloat16", replans + ("train", "extract")),
             ("fused_rms_norm", "fused_norm.cu", "mdt_policy_tpu/ops/fused_norm.py:159",
-             b3_rows, "voltron_train", ("replan", "train", "cache_train")),
+             "b3", "voltron_train", "bfloat16", ("replan", "rollout", "train", "cache_train")),
+            ("small_seq_mha", "small_seq_mha.cu",
+             "mdt_policy_tpu/ops/pallas_attention.py:77", "b2", "mdtv_dec_b32", "float32",
+             replans),
             ("attention_halfblock", "attention_halfblock.cu",
-             "mdt_policy_tpu/ops/attention_halfblock.py:145", hb_rows, "voltron", ("extract",)),
+             "mdt_policy_tpu/ops/attention_halfblock.py:145", "hb", "voltron", "bfloat16",
+             ("extract",)),
             ("mlp_halfblock", "mlp_halfblock.cu", "mdt_policy_tpu/ops/mlp_halfblock.py:94",
-             hb_rows, "voltron", ("extract",))):
-        mine = [r for r in rows if r["kernel"] == name]
-        main = main_row(mine, name, shape)
+             "hb", "voltron", "bfloat16", ("extract",))):
+        mine = [r for r in rows[kind] if r["kernel"] == name]
+        main = next(r for r in mine if r["shape"] == shape and r["dtype"] == dtype)
         entry = kernel_entry(name, f"mdt_policy_tpu_torch/csrc/{source}", replaces,
                              sum(p[name] for p in paths.values()), mine, main)
         if "unfused_ms" in main:

@@ -86,12 +86,22 @@ _PORTED = {"sampler_type": "ddim", "use_ada_conditioning": True,
            "goal_drop": 0.0}
 
 
-def _default_device(device) -> torch.device:
+def check_ported(cfg: MDTVConfig) -> None:
+    """Raises NotImplementedError for a config value the port lacks."""
+    unported = {k: getattr(cfg, k) for k, v in _PORTED.items()
+                if getattr(cfg, k) != v}
+    if unported:
+        raise NotImplementedError(
+            f"config values not ported yet: {unported} (ported: the "
+            f"production values {_PORTED}; ROADMAP queue A item 18)")
+
+
+def default_device(device) -> torch.device:
     """The CUDA device unless the caller names one; never a silent CPU."""
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
-        raise RuntimeError("MDTVAgentNet builds on the CUDA device by default "
+        raise RuntimeError("the agent nets build on the CUDA device by default "
                            "and no CUDA device is available; pass device='cpu' "
                            "to build on the CPU")
     return torch.device("cuda")
@@ -102,13 +112,8 @@ class MDTVAgentNet(nn.Module):
 
     def __init__(self, cfg: MDTVConfig, device=None):
         super().__init__()
-        unported = {k: getattr(cfg, k) for k, v in _PORTED.items()
-                    if getattr(cfg, k) != v}
-        if unported:
-            raise NotImplementedError(
-                f"config values not ported yet: {unported} (ported: the "
-                f"production values {_PORTED}; ROADMAP queue A item 18)")
-        device = _default_device(device)
+        check_ported(cfg)
+        device = default_device(device)
         c = self.cfg = cfg
         tower_dt = getattr(torch, c.compute_dtype)
         gen_dt = getattr(torch, c.gen_compute_dtype)
@@ -330,8 +335,9 @@ def make_draws(cfg: MDTVConfig, batch_size: int,
 @torch.no_grad()
 def init_random_(net: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter from `generator`, in `named_parameters` order:
-    biases 0, norm weights 1, LayerScale 0.1, `logit_scale` log(1/0.07),
-    latents and `ctx_dec_pe` N(0, 1), convolutions N(0, 1/fan_in), the CLIP
+    biases 0, norm weights 1 (LayerNorm, GroupNorm, RMSNorm), LayerScale
+    0.1, `logit_scale` log(1/0.07), latents and `ctx_dec_pe` N(0, 1),
+    convolutions N(0, 1/fan_in), the CLIP
     projections N(0, 1/width), positional tables N(0, 0.01), everything else
     N(0, 0.02)."""
     for name, p in net.named_parameters():
@@ -340,7 +346,7 @@ def init_random_(net: nn.Module, generator: torch.Generator) -> nn.Module:
         if leaf == "bias":
             p.zero_()
             continue
-        if isinstance(owner, (nn.LayerNorm, RMSNorm)):
+        if isinstance(owner, (nn.LayerNorm, nn.GroupNorm, RMSNorm)):
             p.fill_(1.0)
             continue
         if isinstance(owner, LayerScale):
@@ -365,13 +371,15 @@ def init_random_(net: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 @torch.no_grad()
-def denoise_actions(net: MDTVAgentNet, perceptual_emb: Dict[str, torch.Tensor],
+def denoise_actions(net: nn.Module, perceptual_emb: Dict[str, torch.Tensor],
                     latent_goal: torch.Tensor, *,
                     generator: Optional[torch.Generator] = None,
                     noise: Optional[torch.Tensor] = None,
                     modality: str = "lang", return_context: bool = False):
     """Sample a (B, act_window_size, action_dim) action chunk with the
-    config's sampler, schedule and number of steps.
+    config's sampler, schedule and number of steps, through the net's
+    `encode_context` and `decode_actions` (an `MDTVAgentNet` or an
+    `MDTAgentNet`; `perceptual_emb` is what its `perceive` returns).
 
     The encoder runs once: under AdaLN conditioning it never sees sigma, so
     the context is computed before the sampling loop. The initial state is
@@ -540,9 +548,11 @@ class MDTVPolicy:
     every `multistep` env steps, the cached chunk replayed in between. The
     CLIP text tower runs once per goal: its embedding is cached for as long
     as the goal tokens do not change. A goal image runs the CLIP vision
-    tower at every replan, in the "vis" modality."""
+    tower at every replan, in the "vis" modality. It serves either agent
+    through the nets' uniform `perceive`, goal and `denoise_actions`
+    entries (`MDTPolicy` is the same class)."""
 
-    def __init__(self, net: MDTVAgentNet,
+    def __init__(self, net: nn.Module,
                  generator: Optional[torch.Generator] = None):
         self.net, self.cfg = net, net.cfg
         if self.cfg.multistep > self.cfg.act_window_size:
@@ -563,33 +573,37 @@ class MDTVPolicy:
         return torch.as_tensor(x, device=self.device, dtype=dtype)
 
     @torch.no_grad()
+    def plan(self, obs: Dict, goal: Dict) -> torch.Tensor:
+        """One replan: the (B, act_window_size, action_dim) chunk for `obs`
+        and `goal` (as `step` takes them), the text goal's embedding cached
+        across calls for as long as its tokens do not change."""
+        modality = "lang"
+        if "lang_tokens" in goal:
+            toks = goal["lang_tokens"]
+            toks = toks.cpu().numpy() if torch.is_tensor(toks) else np.asarray(toks)
+            if self._goal_tokens is None or not np.array_equal(toks, self._goal_tokens):
+                self._goal_tokens = toks
+                self._goal_emb = self.net.encode_language_goal(self._tensor(toks))
+            goal_emb = self._goal_emb
+        elif "rgb_static_goal" in goal:
+            image = self._tensor(goal["rgb_static_goal"], torch.float32)
+            goal_emb = self.net.encode_visual_goal(image[None] if image.ndim == 3 else image)
+            modality = "vis"
+        else:
+            goal_emb = torch.atleast_2d(self._tensor(goal["lang"], torch.float32))
+        emb = self.net.perceive(self._tensor(obs["rgb_static"], torch.float32),
+                                self._tensor(obs["rgb_gripper"], torch.float32))
+        return denoise_actions(self.net, emb, goal_emb, generator=self.generator,
+                               modality=modality)
+
+    @torch.no_grad()
     def step(self, obs: Dict, goal: Dict) -> torch.Tensor:
         """obs: {'rgb_static': (B,T,H,W,3), 'rgb_gripper': ...};
         goal: {'lang_tokens': (B,77)}, {'lang': (B,512) embedding} or
         {'rgb_static_goal': (B,H,W,3) CLIP-normalized goal frame}.
         Returns the current (B, action_dim) action."""
         if self.rollout_step_counter % self.cfg.multistep == 0:
-            modality = "lang"
-            if "lang_tokens" in goal:
-                toks = goal["lang_tokens"]
-                toks = toks.cpu().numpy() if torch.is_tensor(toks) else np.asarray(toks)
-                if self._goal_tokens is None or \
-                        not np.array_equal(toks, self._goal_tokens):
-                    self._goal_tokens = toks
-                    self._goal_emb = self.net.encode_language_goal(self._tensor(toks))
-                goal_emb = self._goal_emb
-            elif "rgb_static_goal" in goal:
-                image = self._tensor(goal["rgb_static_goal"], torch.float32)
-                goal_emb = self.net.encode_visual_goal(
-                    image[None] if image.ndim == 3 else image)
-                modality = "vis"
-            else:
-                goal_emb = torch.atleast_2d(self._tensor(goal["lang"], torch.float32))
-            emb = self.net.perceive(self._tensor(obs["rgb_static"], torch.float32),
-                                    self._tensor(obs["rgb_gripper"], torch.float32))
-            self.pred_action_seq = denoise_actions(
-                self.net, emb, goal_emb, generator=self.generator,
-                modality=modality)
+            self.pred_action_seq = self.plan(obs, goal)
         action = self.pred_action_seq[:, self.rollout_step_counter % self.cfg.multistep]
         self.rollout_step_counter += 1
         if self.rollout_step_counter == self.cfg.multistep:

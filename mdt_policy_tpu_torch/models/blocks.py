@@ -30,13 +30,15 @@ import torch.nn.functional as F
 
 from ..ops.attention import dropout, sdpa
 from ..ops.fused_norm import fused_layer_norm, fused_rms_norm
+from ..ops.small_seq_mha import MAX_DIM, MAX_SEQ, small_seq_mha
 
 __all__ = [
     "dense", "mish", "LayerNorm", "TowerLayerNorm",
     "BiaslessLayerNorm", "RMSNorm", "SwishGLU", "Attention", "MLP", "Block",
     "AdaLNZero", "modulate", "ConditionedBlock", "TransformerEncoder",
     "TransformerFiLMDecoder", "MAPAttention", "MAPBlock",
-    "ClipStyleProjection", "SinusoidalPosEmb", "SigmaEmbedding",
+    "ClipStyleProjection", "SingleTokenProjection", "SinusoidalPosEmb",
+    "SigmaEmbedding",
 ]
 
 
@@ -123,7 +125,9 @@ class Attention(nn.Module):
     """Self (context None) or cross attention; q/k/v with bias, the output
     projection without (ref :66-158, bias=False). Dropout on the
     post-softmax probabilities (`attn_pdrop`) and on the output
-    (`resid_pdrop`) when a generator is passed."""
+    (`resid_pdrop`) when a generator is passed. Self-attention over at most
+    `MAX_SEQ` tokens whose probabilities see no dropout runs kernel B2
+    (`ops/small_seq_mha.py`); everything else runs `sdpa`."""
 
     def __init__(self, n_embd: int, n_head: int, *, causal: bool = False,
                  attn_pdrop: float = 0.0, resid_pdrop: float = 0.0):
@@ -143,8 +147,14 @@ class Attention(nn.Module):
                    .transpose(1, 2)
                    for src, layer in ((x, self.query), (kv_src, self.key),
                                       (kv_src, self.value)))
-        y = sdpa(q, k, v, causal=self.causal, dropout_p=self.attn_pdrop,
-                 generator=generator)
+        if context is None and T <= MAX_SEQ and C // self.n_head <= MAX_DIM \
+                and (generator is None or self.attn_pdrop == 0.0):
+            # self-attention over a short sequence, probabilities without
+            # dropout: kernel B2 (its output is (B, T, H, D) in memory)
+            y = small_seq_mha(q, k, v, causal=self.causal)
+        else:
+            y = sdpa(q, k, v, causal=self.causal, dropout_p=self.attn_pdrop,
+                     generator=generator)
         y = self.c_proj(y.transpose(1, 2).reshape(B, T, C))
         return dropout(y, self.resid_pdrop, generator)
 
@@ -318,6 +328,18 @@ class ClipStyleProjection(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.latent_proj(x)
+
+
+class SingleTokenProjection(nn.Module):
+    """The parameter-free "single_token" contrastive head of MDT (JAX
+    blocks.py:478-479): the context token at `index`."""
+
+    def __init__(self, index: int):
+        super().__init__()
+        self.index = index
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x[:, self.index, :]
 
 
 class SinusoidalPosEmb(nn.Module):

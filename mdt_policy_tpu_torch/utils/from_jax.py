@@ -11,16 +11,22 @@ function:
     clip_text_from_jax        <-> port_clip_text
     clip_vision_from_jax      <-> port_clip_vision (keys without `visual.`)
     mdtv_transformer_from_jax <-> port_mdtv_transformer
+    mdt_transformer_from_jax  <-> port_mdt_transformer
+    resnet18_gn_from_jax      <-> port_resnet18_gn (prefixes `backbone`,
+                                  `fc_layers.0`)
     masked_decoder_from_jax   <-> port_masked_decoder
     clip_proj_from_jax        <-> the `clip_proj` part of port_mdtv_agent
 
 and `from_jax` of the whole agent tree is the inverse of port_mdtv_agent
-(up to its reference module prefixes, `model.inner_model.` and so on).
+(up to its reference module prefixes, `model.inner_model.` and so on); it
+also takes the JAX `MDTAgentNet` tree (ResNet encoders, `MDTTransformer`,
+the parameter-free single-token `clip_proj`).
 
 Conventions: a flax Dense kernel (in, out) is a torch Linear weight
 (out, in); a flax Conv kernel (H, W, I, O) is a torch Conv2d weight
 (O, I, H, W); flax LayerNorm scale/bias are weight/bias; a biasless
-LayerNorm nests its params under `LayerNorm_0`.
+LayerNorm nests its params under `LayerNorm_0`; flax GroupNorm scale/bias
+are weight/bias.
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ import torch
 
 __all__ = ["from_jax", "voltron_vit_from_jax", "perceiver_from_jax",
            "clip_text_from_jax", "clip_vision_from_jax",
-           "mdtv_transformer_from_jax", "masked_decoder_from_jax",
+           "mdtv_transformer_from_jax", "mdt_transformer_from_jax",
+           "resnet18_gn_from_jax", "masked_decoder_from_jax",
            "clip_proj_from_jax"]
 
 StateDict = Dict[str, torch.Tensor]
@@ -207,22 +214,58 @@ def mdtv_transformer_from_jax(params: Mapping) -> StateDict:
     return sd
 
 
+def mdt_transformer_from_jax(params: Mapping) -> StateDict:
+    """MDTTransformer: MDT-V's layout plus the gripper-camera embedding
+    `incam_embed`."""
+    sd = mdtv_transformer_from_jax(params)
+    _dense(sd, "incam_embed", params["incam_embed"])
+    return sd
+
+
+def resnet18_gn_from_jax(params: Mapping) -> StateDict:
+    """BesoResNetEncoder: the trunk `backbone` as torchvision's positional
+    Sequential (0 conv1, 1 norm, 4-7 layer1-4) and the head `fc_layers.0`."""
+    trunk = params["backbone"]
+    sd: StateDict = {}
+    _conv(sd, "backbone.0", trunk["conv1"])
+    _ln(sd, "backbone.1", trunk["bn1"])
+    for stage in range(4):
+        for b in range(2):
+            p, pre = trunk[f"layer{stage + 1}_{b}"], f"backbone.{4 + stage}.{b}"
+            for name in ("conv1", "conv2"):
+                _conv(sd, f"{pre}.{name}", p[name])
+            for name in ("bn1", "bn2"):
+                _ln(sd, f"{pre}.{name}", p[name])
+            if "downsample_conv" in p:
+                _conv(sd, f"{pre}.downsample.0", p["downsample_conv"])
+                _ln(sd, f"{pre}.downsample.1", p["downsample_norm"])
+    _dense(sd, "fc_layers.0", params["fc"])
+    return sd
+
+
+def _transformer_from_jax(params: Mapping) -> StateDict:
+    return (mdt_transformer_from_jax if "incam_embed" in params
+            else mdtv_transformer_from_jax)(params)
+
+
 _PARTS = {
     "img_encoder": voltron_vit_from_jax,
     "perceiver": perceiver_from_jax,
+    "static_resnet": resnet18_gn_from_jax,
+    "gripper_resnet": resnet18_gn_from_jax,
     "visual_goal": clip_vision_from_jax,
     "language_goal": clip_text_from_jax,
-    "inner": mdtv_transformer_from_jax,
+    "inner": _transformer_from_jax,
     "gen_img": masked_decoder_from_jax,
     "clip_proj": clip_proj_from_jax,
 }
 
 
 def from_jax(params: Mapping) -> StateDict:
-    """The JAX `MDTVAgentNet` parameter tree (or any part of it, such as
-    the gradient tree of the trainables) -> the port's `MDTVAgentNet`
-    state_dict keys. Converts every network of `_PARTS` and `logit_scale`
-    that the tree holds."""
+    """The JAX `MDTVAgentNet` or `MDTAgentNet` parameter tree (or any part
+    of it, such as the gradient tree of the trainables) -> the port's
+    state_dict keys of the same net. Converts every network of `_PARTS` and
+    `logit_scale` that the tree holds."""
     sd: StateDict = {}
     for part, convert in _PARTS.items():
         if part in params:

@@ -221,7 +221,12 @@ def test_port_imports_without_jax():
             "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'mdt_policy_tpu_torch.')]\n"
             "assert len(names) > 20, names\n"
             "for needed in ('ops.attention_halfblock', 'ops.mlp_halfblock', "
-            "'data.extract_embeddings', 'data.transforms', 'utils.clip_tokenizer'):\n"
+            "'data.extract_embeddings', 'data.transforms', 'utils.clip_tokenizer', "
+            "'ops.small_seq_mha', 'models.resnet', 'models.mdt_transformer', "
+            "'agents.mdt_agent', 'utils.fnv', 'data.loader', 'evaluation.tasks', "
+            "'evaluation.sequences', 'evaluation.initial_states', "
+            "'evaluation.annotations', 'evaluation.fake_env', 'evaluation.rollout', "
+            "'evaluation.policy_adapter', 'evaluation.batched_rollout'):\n"
             "    assert 'mdt_policy_tpu_torch.' + needed in names, needed\n"
             "for name in names + ['chip_smoke']:\n"
             "    __import__(name)\n"
