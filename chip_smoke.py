@@ -61,9 +61,25 @@ step from the rows it wrote. Prints one JSON line per phase:
               no tower kernel, B3 only at the decoder and the MAP head; one
               step kernels vs plain; one validation step; step times and a
               profiled window.
+ 15. attn_variants  (runs right after the kernel checks of 3) the
+              attention-variant microbench: `run()` of
+              `mdt_policy_tpu_torch.tools.attn_kernel_experiment` (V1 at
+              block_b 16, 20, 24) and `attn_kernel_round3` (V3 under the 8
+              option sets of the JAX tool) at (1024, 196, 1152) H=6 and
+              (512, 197, 2304) H=12, 12-layer chains, B1 as the production
+              baseline; every chain must launch its kernel 12 times. Then
+              each V1/V3 variant against its plain version on the card at
+              the same shapes (bound 2e-2 x max(1, max|ref|)), one line per
+              (variant, shape): max |delta|, the kernel's event and device ms,
+              its chain ms per layer, bound_ms (bytes-bound, ~0.184 ms), the
+              plain version's, SDPA's and B1's ms, TFLOP/s, launches per chain.
 
-Then the kernel summary line, and last `{"ok": true, "device": ...}`. Any
-failure raises and exits non-zero; without a CUDA device it exits 1.
+Then the kernel summary line, and last `{"ok": true, "device": ...}`. The
+summary holds each kernel at its main shape, with its launches on every
+path; V1 (`attn_pair_grid`, main row Voltron bB=16) and V3 (`attn_pair_v3`,
+main row Voltron bB=16 +mxu_sum +exp2) belong to the `attn_variants` path,
+and the script fails if either was not launched there. Any failure raises
+and exits non-zero; without a CUDA device it exits 1.
 """
 
 from __future__ import annotations
@@ -180,6 +196,15 @@ EXTRACT_SENTENCES = 512
 # cuBLAS before), a few bf16 ulps (3.9e-3 relative each) through 12 blocks;
 # the bf16 tower bound of the port's CPU tests (5e-2).
 EXTRACT_ROUTE_TOL = 5e-2
+# attention-variant microbench (V1, V3): the JAX tools' default batches
+# (Voltron images, CLIP vision images) and chain depth
+VARIANT_BATCHES = (1024, 512)
+VARIANT_LAYERS = 12
+# |V1/V3 - plain| bound relative to max(1, max|ref|): both round the
+# probabilities (or e) and the output to bf16 at the same points; one bf16
+# ulp of an O(1) output (3.9e-3) plus a flipped probability, the CPU tests'
+# bound against the Pallas kernels
+VARIANT_TOL = 2e-2
 
 
 def small_seq_bound(dtype_name: str, ref, v) -> float:
@@ -416,6 +441,70 @@ def phase_kernel_b2(torch, device):
     return rows
 
 
+def phase_attn_variants(torch, device, launches: Launches, smi):
+    """The attention-variant microbench: `run()` of both port tools
+    (`tools/attn_kernel_experiment.py`, V1, and `tools/attn_kernel_round3.py`,
+    V3) at their default batches, 12-layer chains per variant, counting the
+    launches of that run; every chain must launch its kernel once a layer.
+    Then each V1/V3 variant against its plain version on the card at the
+    same shapes, with its kernel, device, plain and SDPA times beside the
+    chain's per-layer time and B1's. One JSON line per (variant, shape)."""
+    from mdt_policy_tpu_torch.tools import attn_kernel_experiment, attn_kernel_round3, perf_probe
+    tools = (attn_kernel_experiment, attn_kernel_round3)
+    launches.reset()
+    runs = [r for tool in tools for r in tool.run(*VARIANT_BATCHES, device=device,
+                                                  n_layers=VARIANT_LAYERS)]
+    torch.cuda.synchronize()
+    counts = launches.read()
+    short = [(r["tool"], r["case"], r["variant"], r["launches_per_chain"]) for r in runs
+             if r["launches_per_chain"] != VARIANT_LAYERS]
+    if short:
+        raise AssertionError(f"microbench chains without one launch a layer: {short}")
+    by_key = {(r["tool"], r["case"], r["variant"]): r for r in runs}
+    b1 = {(r["tool"], r["case"]): r["ms_per_layer"] for r in runs
+          if r["kernel"] == "fused_qkv_attention"}
+    name_of = {fn: name for name, fn in launches.fns.items()}
+    gen = torch.Generator(device).manual_seed(3)
+    rows = []
+    for case, shape, H in perf_probe.cases(*VARIANT_BATCHES):
+        B, T, C3 = shape
+        C = C3 // 3
+        qkv = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+        library_ms = event_ms(lambda: perf_probe.sdpa_packed(qkv, H), 20, torch)
+        bms, by = bound_ms(4 * B * T * C * qkv.element_size(), 4.0 * B * T * T * C,
+                           "bfloat16")
+        for tool in tools:
+            for v in tool.variants(H):
+                kernel = name_of[v.fn.kernel]
+                if kernel == "fused_qkv_attention":  # B1 is checked in its own phase
+                    continue
+                run = by_key[(tool.__name__.rsplit(".", 1)[-1], case, v.name)]
+                out, ref = v.fn(qkv), v.fn.plain(qkv)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                row = {"phase": "attn_variants", "kernel": kernel, "tool": run["tool"],
+                       "case": case, "variant": v.name, "shape": f"{case}: {v.name}",
+                       "qkv": list(shape), "heads": H, "dtype": "bfloat16",
+                       "max_abs_err": err,
+                       "bound": VARIANT_TOL * max(1.0, ref.float().abs().max().item()),
+                       "err_vs_einsum": run["err_vs_einsum"],
+                       "ms": event_ms(lambda: v.fn(qkv), 20, torch),
+                       "ms_per_layer": run["ms_per_layer"],
+                       "device_ms": device_ms(lambda: v.fn(qkv), f"{kernel}_kernel", 10, torch),
+                       "bound_ms": bms, "bound_by": by,
+                       "plain_ms": event_ms(lambda: v.fn.plain(qkv), 5, torch),
+                       "library_ms": library_ms,
+                       "sdpa_ms_per_layer": run["sdpa_ms_per_layer"],
+                       "b1_ms_per_layer": b1[(run["tool"], case)],
+                       "tflops": run["tflops"], "vs_b1": run["vs_production"],
+                       "launches_per_chain": run["launches_per_chain"], "card": smi}
+                emit(row)
+                if not (bool(torch.isfinite(out).all()) and err <= row["bound"]):
+                    raise AssertionError(f"{kernel} disagrees with its plain version: {row}")
+                rows.append(row)
+    return rows, counts
+
+
 def make_inputs(torch, cfg, batch: int, seed: int, device):
     """Camera frames (B, 1, H, W, 3) and a 77-token goal whose EOT id is its
     largest, drawn from a seeded generator."""
@@ -452,13 +541,17 @@ class Launches:
         from mdt_policy_tpu_torch.ops.fused_norm import fused_layer_norm, fused_rms_norm
         from mdt_policy_tpu_torch.ops.fused_qkv_attention import fused_qkv_attention
         from mdt_policy_tpu_torch.ops.mlp_halfblock import mlp_halfblock
+        from mdt_policy_tpu_torch.ops.pair_attention import (pair_attention,
+                                                             pair_grid_attention)
         from mdt_policy_tpu_torch.ops.small_seq_mha import small_seq_mha
         self.fns = {"fused_qkv_attention": fused_qkv_attention,
                     "fused_layer_norm": fused_layer_norm,
                     "fused_rms_norm": fused_rms_norm,
                     "attention_halfblock": attention_halfblock,
                     "mlp_halfblock": mlp_halfblock,
-                    "small_seq_mha": small_seq_mha}
+                    "small_seq_mha": small_seq_mha,
+                    "attn_pair_grid": pair_grid_attention,
+                    "attn_pair_v3": pair_attention}
 
     def reset(self):
         for fn in self.fns.values():
@@ -489,7 +582,7 @@ def expected_replan_launches(cfg, family: str):
         {"fused_qkv_attention": 0, "fused_layer_norm": 0, "fused_rms_norm": 0}
     text = {"fused_qkv_attention": cfg.clip_text_layers,
             "fused_layer_norm": 2 * cfg.clip_text_layers + 1, "fused_rms_norm": 0}
-    rest = {**NO_HALFBLOCKS, "small_seq_mha": b2_per_replan(cfg)}
+    rest = {**NO_HALFBLOCKS, **NO_VARIANTS, "small_seq_mha": b2_per_replan(cfg)}
     return [{**{k: camera[k] + text[k] for k in camera}, **rest}, {**camera, **rest}]
 
 
@@ -531,6 +624,7 @@ def phase_replan(torch, net, device, launches: Launches, family: str):
 
 NO_HALFBLOCKS = {"attention_halfblock": 0, "mlp_halfblock": 0}
 NO_DENOISER = {"small_seq_mha": 0}
+NO_VARIANTS = {"attn_pair_grid": 0, "attn_pair_v3": 0}  # the microbench's kernels only
 
 
 def plain_kernels():
@@ -839,7 +933,8 @@ def expected_train_launches(cfg):
             "fused_layer_norm": 2 * (1 + 2 * cfg.clip_vision_layers + 2)
             + 2 * cfg.clip_text_layers + 1,
             "fused_rms_norm": 2 * 2 * cfg.vit_depth
-            + 2 * (2 * cfg.gen_decoder_depth + 1) + 2 * 2, **NO_HALFBLOCKS, **NO_DENOISER}
+            + 2 * (2 * cfg.gen_decoder_depth + 1) + 2 * 2, **NO_HALFBLOCKS, **NO_DENOISER,
+            **NO_VARIANTS}
 
 
 def _frozen_and_trainable(torch, net):
@@ -1155,7 +1250,7 @@ def phase_extract(torch, net, device, launches: Launches, smi, root):
                 "fused_layer_norm": 3 * fwd_calls + 1,
                 "attention_halfblock": per_batch * fwd_calls + cfg.clip_text_layers,
                 "mlp_halfblock": per_batch * fwd_calls + cfg.clip_text_layers,
-                **NO_DENOISER}
+                **NO_DENOISER, **NO_VARIANTS}
     n_tokens = 2 * (cfg.img_size // cfg.vit_patch) ** 2
     shapes = {"ep_voltron_tokens.npy": ((EXTRACT_FRAMES, n_tokens, cfg.perceiver_dim), "uint16"),
               "ep_clip_img_emb.npy": ((EXTRACT_FRAMES, cfg.clip_embed_dim), "float32"),
@@ -1252,7 +1347,7 @@ def expected_cache_train_launches(cfg):
     norms (twice, lang scope)."""
     return {"fused_qkv_attention": 0, "fused_layer_norm": 0,
             "fused_rms_norm": 2 * (2 * cfg.gen_decoder_depth + 1) + 2 * 2, **NO_HALFBLOCKS,
-            **NO_DENOISER}
+            **NO_DENOISER, **NO_VARIANTS}
 
 
 def phase_cache_train(torch, net, device, launches: Launches, smi, out):
@@ -1328,6 +1423,8 @@ def main() -> int:
             "b2": phase_kernel_b2(torch, device),
             "hb": phase_kernel_halfblocks(torch, device)}
     launches = Launches()
+    rows["var"], variant_launches = phase_attn_variants(torch, device, launches, smi)
+    torch.cuda.empty_cache()
     net = build_net(torch, MDTVConfig(), device)
     paths = {"replan": phase_replan(torch, net, device, launches, "mdtv")}
     phase_e2e(torch, net, device, launches, "mdtv")
@@ -1350,6 +1447,7 @@ def main() -> int:
         paths["extract"] = phase_extract(torch, net, device, launches, smi, root)
         paths["cache_train"] = phase_cache_train(torch, net, device, launches, smi,
                                                  os.path.join(root, "extracted"))
+    paths["attn_variants"] = variant_launches
     emit(summary(rows, paths))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -1359,9 +1457,9 @@ def main() -> int:
 
 def summary(rows, paths):
     """The kernels line: each kernel at its main shape (bf16 for the towers'
-    kernels, f32 for B2, whose path is the f32 denoiser), with its launches
-    on each path; fails if a kernel was not launched on one of the paths it
-    belongs to."""
+    kernels and the microbench's V1 and V3, f32 for B2, whose path is the
+    f32 denoiser), with its launches on each path; fails if a kernel was not
+    launched on one of the paths it belongs to."""
     replans = ("replan", "mdt_replan", "rollout")
     entries = []
     for name, source, replaces, kind, shape, dtype, own in (
@@ -1379,7 +1477,11 @@ def summary(rows, paths):
              "mdt_policy_tpu/ops/attention_halfblock.py:145", "hb", "voltron", "bfloat16",
              ("extract",)),
             ("mlp_halfblock", "mlp_halfblock.cu", "mdt_policy_tpu/ops/mlp_halfblock.py:94",
-             "hb", "voltron", "bfloat16", ("extract",))):
+             "hb", "voltron", "bfloat16", ("extract",)),
+            ("attn_pair_grid", "attn_pair_grid.cu", "tools/attn_kernel_experiment.py:31",
+             "var", "voltron: pair-grid bB=16", "bfloat16", ("attn_variants",)),
+            ("attn_pair_v3", "attn_pair_v3.cu", "tools/attn_kernel_round3.py:52", "var",
+             "voltron: pair bB=16 +mxusum+exp2", "bfloat16", ("attn_variants",))):
         mine = [r for r in rows[kind] if r["kernel"] == name]
         main = next(r for r in mine if r["shape"] == shape and r["dtype"] == dtype)
         entry = kernel_entry(name, f"mdt_policy_tpu_torch/csrc/{source}", replaces,

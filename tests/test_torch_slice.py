@@ -214,8 +214,8 @@ def test_denoise_actions_needs_a_generator_or_noise():
 
 def test_port_imports_without_jax():
     """Every module of the port, and chip_smoke.py, imports without pulling
-    in JAX or the JAX package; and no import statement anywhere in them,
-    function-level ones included, names either."""
+    in JAX, the JAX package or the repository's JAX `tools/`; and no import
+    statement anywhere in them, function-level ones included, names any."""
     code = ("import pkgutil, sys\n"
             "import mdt_policy_tpu_torch as pkg\n"
             "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'mdt_policy_tpu_torch.')]\n"
@@ -226,12 +226,14 @@ def test_port_imports_without_jax():
             "'agents.mdt_agent', 'utils.fnv', 'data.loader', 'evaluation.tasks', "
             "'evaluation.sequences', 'evaluation.initial_states', "
             "'evaluation.annotations', 'evaluation.fake_env', 'evaluation.rollout', "
-            "'evaluation.policy_adapter', 'evaluation.batched_rollout'):\n"
+            "'evaluation.policy_adapter', 'evaluation.batched_rollout', "
+            "'ops.pair_attention', 'tools.perf_probe', 'tools.attn_kernel_experiment', "
+            "'tools.attn_kernel_round3'):\n"
             "    assert 'mdt_policy_tpu_torch.' + needed in names, needed\n"
             "for name in names + ['chip_smoke']:\n"
             "    __import__(name)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'mdt_policy_tpu')]\n"
+            "('jax', 'jaxlib', 'flax', 'mdt_policy_tpu', 'tools')]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120, cwd=REPO)
@@ -246,7 +248,7 @@ def test_port_imports_without_jax():
                 roots = [node.module.split(".")[0]]
             else:
                 continue
-            assert not set(roots) & {"jax", "jaxlib", "flax", "mdt_policy_tpu"}, \
+            assert not set(roots) & {"jax", "jaxlib", "flax", "mdt_policy_tpu", "tools"}, \
                 (path, roots)
 
 
