@@ -19,8 +19,9 @@ step from the rows it wrote. Prints one JSON line per phase:
               at the paths' shapes, bf16 and f32, with CUDA-event times of
               the kernel, the plain version and the PyTorch library call,
               the kernel's device time from the profiler (`device_ms`), and
-              the least time the card could take (`bound_ms`); B2 at the
-              replans' shapes at B=1 and B=32 and the four of the JAX
+              the least time the card could take (`bound_ms`); each B1 row
+              names the body it ran (`sm90`, the tensor cores, for bf16;
+              `mha_core` for f32); B2 at the replans' shapes at B=1 and B=32 and the four of the JAX
               package's ops/bench_pallas.py. Then B4 and B5 (the attention
               and MLP half-blocks) at the extraction's six shapes against
               their plain versions in bf16 and in float64, with the kernel,
@@ -105,13 +106,16 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 # B1 (name, B, T, C, H, causal): the replan's shapes, the train step's at
-# B=128 per stream (Voltron 256 images, CLIP vision 128), and the training
-# batch of the JAX package's benchmark
+# B=128 per stream (Voltron 256 images, CLIP vision 128, CLIP text 128
+# goals), the training batch of the JAX package's benchmark, and the text
+# tower over extraction's 512 sentences
 KERNEL_SHAPES = (
     ("voltron", 2, 196, 384, 6, False),
     ("voltron_train", 256, 196, 384, 6, False),
     ("voltron_batch", 1024, 196, 384, 6, False),
     ("clip_text", 1, 77, 512, 8, True),
+    ("clip_text_train", 128, 77, 512, 8, True),
+    ("clip_text_extract", 512, 77, 512, 8, True),
     ("clip_vision", 2, 197, 768, 12, False),
     ("clip_vision_train", 128, 197, 768, 12, False),
 )
@@ -310,7 +314,7 @@ def _sdpa_views(qkv, H, torch):
 def phase_kernel_b1(torch, device):
     import torch.nn.functional as F
     from mdt_policy_tpu_torch.ops.fused_qkv_attention import (
-        fused_qkv_attention, fused_qkv_attention_reference)
+        _sm90_body, fused_qkv_attention, fused_qkv_attention_reference)
     gen = torch.Generator(device).manual_seed(0)
     rows = []
     for name, B, T, C, H, causal in KERNEL_SHAPES:
@@ -339,7 +343,9 @@ def phase_kernel_b1(torch, device):
                                4 * B * H * pairs * (C // H), dtype_name)
             row = {"phase": "kernel", "kernel": "fused_qkv_attention",
                    "shape": name, "qkv": [B, T, 3 * C], "heads": H,
-                   "causal": causal, "dtype": dtype_name, "max_abs_err": err,
+                   "causal": causal, "dtype": dtype_name,
+                   "body": "sm90" if _sm90_body(dtype, T, C, H) else "mha_core",
+                   "max_abs_err": err,
                    "tol": KERNEL_TOL[dtype_name], "ms": ms,
                    "device_ms": device_ms(lambda: fused_qkv_attention(qkv, H, causal),
                                           "fused_qkv_attention_kernel", 10, torch),

@@ -10,7 +10,10 @@
 //
 // Three launches on one stream, with nothing between them:
 //   1. halfblock_gemm (norm prologue, bias epilogue)    x -> qkv (B*T, 3C)
-//   2. halfblock_attention_kernel (mha_core.cuh, B1's body) qkv -> att (B*T, C)
+//   2. the attention core, B1's body: halfblock_attention_sm90_kernel
+//      (attention_sm90.cuh) where the wrapper's `sm90` flag says the call lies
+//      in its domain (64-wide heads, T <= 208: every tower), else
+//      halfblock_attention_kernel (mha_core.cuh)       qkv -> att (B*T, C)
 //   3. halfblock_gemm (residual epilogue: + b_proj, * gamma, + x)  att -> out
 // qkv and att are scratch that the wrapper allocates. One CLIP image's
 // normalized rows (197 x 768 bf16, 303 KB) do not fit in a block's shared
@@ -21,9 +24,10 @@
 // same arithmetic in another summation order.
 //
 // What bounds it on the H100: 8*T*C^2 + 4*T^2*C FLOP per image against
-// ~4*T*C bytes of input and output: the tensor cores (see halfblock_gemm.cuh);
-// the attention core runs on the CUDA cores (see mha_core.cuh).
+// ~4*T*C bytes of input and output: the tensor cores (see halfblock_gemm.cuh
+// and, for the attention core, attention_sm90.cuh).
 
+#include "attention_sm90.cuh"
 #include "halfblock_gemm.cuh"
 #include "mha_core.cuh"
 
@@ -36,13 +40,23 @@ halfblock_attention_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16*
   mha::mha_block<__nv_bfloat16>(qkv, out, seq, C, dh, scale, causal, smem);
 }
 
+template <int NS>
+__global__ void __launch_bounds__(attn90::kThreads, 1)
+halfblock_attention_sm90_kernel(const __grid_constant__ CUtensorMap map_kv,
+                                const __grid_constant__ CUtensorMap map_q,
+                                attn90::bf16* __restrict__ out, int B, int seq, int C, int H,
+                                int causal) {
+  extern __shared__ __align__(128) unsigned char smem_sm90[];
+  attn90::attention_block<NS>(&map_kv, &map_q, out, B, seq, C, H, causal, smem_sm90);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Dynamic shared memory of the attention launch (the largest of the three).
-size_t mdt_attention_halfblock_smem_bytes(int seq, int C, int H) {
-  const size_t att = mha::smem_bytes<__nv_bfloat16>(seq, C / H);
+size_t mdt_attention_halfblock_smem_bytes(int seq, int C, int H, int sm90) {
+  const size_t att = sm90 ? attn90::smem_bytes(seq) : mha::smem_bytes<__nv_bfloat16>(seq, C / H);
   const size_t gemm = hbgemm::smem_bytes();
   return att > gemm ? att : gemm;
 }
@@ -52,7 +66,8 @@ size_t mdt_attention_halfblock_smem_bytes(int seq, int C, int H) {
 int mdt_attention_halfblock(const void* x, const void* g, const void* b, const void* w_qkv,
                             const void* b_qkv, const void* w_proj, const void* b_proj,
                             const void* gamma, void* qkv, void* att, void* out, int B, int T,
-                            int C, int H, int norm_is_ln, float eps, int causal, void* stream) {
+                            int C, int H, int norm_is_ln, float eps, int causal, int sm90,
+                            void* stream) {
   using hbgemm::bf16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * T;
@@ -71,7 +86,11 @@ int mdt_attention_halfblock(const void* x, const void* g, const void* b, const v
   int rc = hbgemm::launch_norm_gemm<hbgemm::kBias>(in, norm_is_ln, s);
   if (rc != 0) return rc;
 
-  rc = mha::launch_mha<__nv_bfloat16>(halfblock_attention_kernel, qkv, att, B, T, C, H, causal, s);
+  rc = sm90 ? attn90::launch(halfblock_attention_sm90_kernel<attn90::kShortSteps>,
+                             halfblock_attention_sm90_kernel<attn90::kMaxSteps>, qkv, att, B,
+                             T, C, H, causal, s)
+            : mha::launch_mha<__nv_bfloat16>(halfblock_attention_kernel, qkv, att, B, T, C,
+                                             H, causal, s);
   if (rc != 0) return rc;
 
   hbgemm::Args pr{};

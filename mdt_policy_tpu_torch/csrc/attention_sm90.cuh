@@ -1,0 +1,498 @@
+// Multi-head attention over the packed (B, T, 3C) qkv projection on the
+// tensor cores, for Hopper (sm_90a): the body of kernel B1
+// (fused_qkv_attention.cu) and of the attention core of kernel B4
+// (attention_halfblock.cu) for bf16 calls with 64-wide heads and T <= 208,
+// which is every tower call. Every other call (f32, other head widths) runs
+// mha_core.cuh; the wrappers pick the body (ops/fused_qkv_attention.py,
+// _sm90_body).
+//
+// Contract, mha_core.cuh's (the Pallas TPU kernels _kernel / _kernel_pair of
+// mdt_policy_tpu/ops/fused_qkv_attention.py): qkv (B, T, 3C) row-major,
+// [q | k | v], H interleaved 64-wide head slices in each, read as the qkv
+// projection writes it; out (B, T, C) row-major, each head at its column
+// slice, as the out-projection reads it. Per head: f32 scores q.k / 8, an
+// optional causal mask, an f32 max-subtracted softmax, probabilities rounded
+// to bf16, P.V accumulated in f32 and rounded to bf16. The exponential is
+// 2^(s log2(e) / 8 - max log2(e) / 8) (one FMA and ex2.approx: a few f32
+// ulps from exp(s / 8 - max / 8)) and p = bf16(e * (1 / l)), one reciprocal
+// a row, within one f32 ulp of e / l before the bf16 rounding.
+//
+// Design. A work item is one (image, head): 64 query rows a tile, T
+// rounded up to 64 (4 tiles at T = 196, 197; 2 at T = 77). Persistent blocks
+// of 3 warpgroups, one an SM, walk the items (blockIdx.x, + gridDim.x, ...).
+// Thread 0 loads each item's boxes by TMA from one 3-D tensor map of the
+// packed tensor (dims 3C channels, T rows, B images; a box is 64 channels =
+// 128 bytes wide, swizzled in 128-byte rows): K and V, 16 NS rows each, and
+// Q, T rounded up to 64 rows; rows past T arrive as zeros. Two stages: the
+// next item's boxes are in flight while the warpgroups work on this one, and
+// a stage is refilled once all 12 warps have released it (one mbarrier
+// pair a stage). Each item's K and V are read once for all its query tiles.
+// The tiles of successive items are dealt to the warpgroups in turn, so
+// that 4 tiles an item keep 3 warpgroups equally busy. A warpgroup's tile:
+// S = Q K^T as 4 wgmma m64n208k16 (m64n80k16 for T <= 80) with both
+// operands in shared memory, the 64 x 16 NS scores in registers (104 f32 a
+// thread, the m16n8 accumulator layout: row 16 w + lane / 4 (+ 8), key
+// 8 n + 2 (lane % 4) (+ 1)); the exact softmax over the row (max and sum
+// reduced across the quad of lanes that holds a row; padded keys and, under
+// the causal mask, keys past the row get -inf, so e = 0, as the contract's
+// finfo(f32).min gives); P packed to bf16 A fragments in registers; O = P V
+// as 13 (or 5) wgmma m64n64k16 with V read MN-major from shared memory;
+// rows < T stored from registers. Every key step is computed for every tile
+// and every warp computes its rows' softmax, rows past T included: a
+// branch that differs between the warps of a warpgroup before a wgmma makes
+// ptxas serialize every wgmma (warning C7520).
+//
+// What bounds it on the H100: at the towers' training shapes ((256, 196,
+// 1152) H=6, (128, 197, 2304) H=12) a call moves ~154 MB (qkv in, out) and
+// does ~15 GFLOP: the bytes bound it (0.046 ms at 3.35 TB/s, 0.015 ms of
+// tensor time). The time goes to the softmax's scalar work (~6
+// instructions a score, on 256 rows for 196) and the latency between each
+// tile's two products, with 12 warps an SM (168 registers a thread).
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <algorithm>
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+
+namespace attn90 {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kHeadDim = 64;
+constexpr int kQueryTile = 64;             // query rows of a warpgroup's tile (wgmma's M)
+constexpr int kWarpgroups = 3;             // of a block, one block an SM
+constexpr int kThreads = 128 * kWarpgroups;
+constexpr int kShortSteps = 5;             // 16-key steps held for T <= 80
+constexpr int kMaxSteps = 13;              // ... for T <= 208
+constexpr float kLog2eScale = 0.125f * 1.4426950408889634f;  // 64^-1/2 log2(e)
+constexpr int kTensorMapError = -1;        // returned when a tensor map cannot be made
+
+// 16-key steps a call's registers hold, and its shared memory: two stages of
+// K and V boxes (16 NS rows of 128 bytes) and a Q box (64-row tiles), 1024-
+// byte aligned for the 128-byte swizzle, and four mbarriers
+__host__ __device__ constexpr int key_steps(int seq) {
+  return (seq + 15) / 16 <= kShortSteps ? kShortSteps : kMaxSteps;
+}
+__host__ __device__ constexpr uint32_t kv_box_bytes(int ns) { return ns * 16 * 128; }
+__host__ __device__ constexpr int q_box_rows(int ns) {
+  return (16 * ns + kQueryTile - 1) / kQueryTile * kQueryTile;
+}
+__host__ __device__ constexpr uint32_t stage_bytes(int ns) {
+  return 2 * kv_box_bytes(ns) + q_box_rows(ns) * 128;
+}
+inline size_t smem_bytes(int seq) {
+  return 1024 + 2 * stage_bytes(key_steps(seq)) + 4 * sizeof(uint64_t);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// --- mbarrier, TMA and wgmma ------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Waits for the phase of parity `parity` to complete; traps (a launch error
+// the wrapper reports) if it never does, rather than hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t spins = 0; !done; ++spins) {
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (spins == (1u << 26)) __trap();
+  }
+}
+
+// one box of the 3-D tensor map at (channel x, row y, image z) into shared
+// memory at `dst`, completing on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
+                                         int x, int y, int z) {
+  asm volatile("cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1, {%3, %4, %5}], [%2];\n"
+               :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x),
+                  "r"(y), "r"(z)
+               : "memory");
+}
+
+// wgmma matrix descriptor of a 128-byte swizzled tile at shared address
+// `addr`: 8-row groups `sbo` bytes apart, `lbo` the leading byte offset
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
+         | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
+         | static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps a register in place across asynchronous wgmma reads and writes
+__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r) :: "memory"); }
+__device__ __forceinline__ void pin(uint32_t& r) { asm volatile("" : "+r"(r) :: "memory"); }
+
+// O (64 x 64) += P (registers) V: V from shared memory, MN-major (trans-b)
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),
+        "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// S (64 x 16 NS keys) += Q K^T, both from shared memory, K-major
+__device__ __forceinline__ void wgmma_ss_n80(float (&d)[40], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39 "
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_n208(float (&d)[104], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %106, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n208k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103 "
+      "}, %104, %105, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+
+// --- the tile ----------------------------------------------------------------
+
+// The softmax of a thread's two score rows, in place. s[j][e] is the score
+// of key 16 j + 8 (e / 4) + 2 t + (e & 1) of row r_lo for e % 4 < 2, else
+// r_hi; keys at or past lim_lo / lim_hi get -inf (only the key steps that
+// cross a limit are tested). Leaves e in s and returns 1 / sum e of each
+// row. The max and the sum of a row run as four independent chains (one per
+// n8 tile half and e & 1), so that they do not wait on one another.
+template <int NS>
+__device__ __forceinline__ void softmax_rows(float (&s)[NS][8], int t, int lim_lo, int lim_hi,
+                                             float& inv_lo, float& inv_hi) {
+  constexpr int kChains = 4;
+  const int lim_min = min(lim_lo, lim_hi);
+  float m[2][kChains];
+#pragma unroll
+  for (int c = 0; c < kChains; ++c) m[0][c] = m[1][c] = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    const bool edge = 16 * j + 16 > lim_min;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int hi = (e >> 1) & 1, c = (e & 1) | ((e >> 2) << 1);
+      float x = s[j][e];
+      if (edge && 16 * j + 8 * (e >> 2) + 2 * t + (e & 1) >= (hi ? lim_hi : lim_lo)) x = -INFINITY;
+      s[j][e] = x;
+      m[hi][c] = fmaxf(m[hi][c], x);
+    }
+  }
+  float mc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float v = m[r][0];
+#pragma unroll
+    for (int c = 1; c < kChains; ++c) v = fmaxf(v, m[r][c]);
+    mc[r] = quad_max(v) * kLog2eScale;
+  }
+  float l[2][kChains];
+#pragma unroll
+  for (int c = 0; c < kChains; ++c) l[0][c] = l[1][c] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int hi = (e >> 1) & 1, c = (e & 1) | ((e >> 2) << 1);
+      const float ev = ex2(fmaf(s[j][e], kLog2eScale, -mc[hi]));
+      s[j][e] = ev;
+      l[hi][c] += ev;
+    }
+  }
+  float sum[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float v = l[r][0];
+#pragma unroll
+    for (int c = 1; c < kChains; ++c) v += l[r][c];
+    sum[r] = quad_sum(v);
+  }
+  inv_lo = 1.f / sum[0];  // p = e * (1 / l)
+  inv_hi = 1.f / sum[1];
+}
+
+// One warpgroup's tile: query rows q0 .. q0 + 63 of the item whose Q, K and
+// V boxes sit at q_addr, k_addr, v_addr; writes rows < seq of its head's
+// columns `col` of `out_img` (T, C).
+template <int NS>
+__device__ __forceinline__ void tile64(bf16* __restrict__ out_img, int seq, int C, int col,
+                                       int q0, int causal, uint32_t q_addr, uint32_t k_addr,
+                                       uint32_t v_addr) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int r_lo = q0 + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2), r_hi = r_lo + 8;
+
+  float s[NS][8];
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s[j][e] = 0.f;
+  float (&sf)[NS * 8] = *reinterpret_cast<float(*)[NS * 8]>(&s[0][0]);
+  wg_fence();
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {  // 16 channels a step: 32 bytes into the swizzled rows
+    const uint64_t dq = sw128_desc(q_addr + q0 * 128 + kc * 32, 16, 1024);
+    const uint64_t dk = sw128_desc(k_addr + kc * 32, 16, 1024);
+    if constexpr (NS == kMaxSteps) wgmma_ss_n208(sf, dq, dk);
+    else wgmma_ss_n80(sf, dq, dk);
+  }
+  wg_commit();
+  wg_wait_all();
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) pin(s[j][e]);
+
+  float inv_lo, inv_hi;
+  softmax_rows<NS>(s, t, causal ? min(seq, r_lo + 1) : seq,
+                         causal ? min(seq, r_hi + 1) : seq, inv_lo, inv_hi);
+  uint32_t pa[NS][4];  // P of key step j as the m16k16 A fragment
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    pa[j][0] = pack(s[j][0] * inv_lo, s[j][1] * inv_lo);
+    pa[j][1] = pack(s[j][2] * inv_hi, s[j][3] * inv_hi);
+    pa[j][2] = pack(s[j][4] * inv_lo, s[j][5] * inv_lo);
+    pa[j][3] = pack(s[j][6] * inv_hi, s[j][7] * inv_hi);
+  }
+
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  wg_fence();
+#pragma unroll
+  for (int j = 0; j < NS; ++j)  // 16 keys a step: 16 rows of 128 bytes into V
+    wgmma_pv(o, pa[j], sw128_desc(v_addr + j * 16 * 128, 1024, 1024));
+  wg_commit();
+  wg_wait_all();
+#pragma unroll
+  for (int i = 0; i < 32; ++i) pin(o[i]);
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pin(pa[j][e]);
+
+  bf16* o_lo = out_img + static_cast<size_t>(r_lo) * C + col;
+  bf16* o_hi = out_img + static_cast<size_t>(r_hi) * C + col;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {  // o[4 nt + e]: channels 8 nt + 2 t (+ 1)
+    const int c = nt * 8 + 2 * t;
+    if (r_lo < seq)
+      *reinterpret_cast<__nv_bfloat162*>(o_lo + c) = __floats2bfloat162_rn(o[4 * nt], o[4 * nt + 1]);
+    if (r_hi < seq)
+      *reinterpret_cast<__nv_bfloat162*>(o_hi + c) =
+          __floats2bfloat162_rn(o[4 * nt + 2], o[4 * nt + 3]);
+  }
+}
+
+// The work of one persistent block (see the design above). map_kv's box is
+// 16 NS rows, map_q's q_box_rows(NS); `smem` is smem_bytes(seq) long.
+template <int NS>
+__device__ __forceinline__ void attention_block(const CUtensorMap* map_kv, const CUtensorMap* map_q,
+                                                bf16* __restrict__ out, int B, int seq, int C,
+                                                int H, int causal, unsigned char* smem) {
+  constexpr uint32_t box = kv_box_bytes(NS);
+  constexpr uint32_t stage = stage_bytes(NS);
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t base = (raw + 1023) & ~1023u;  // stage st: K, V, Q at base + st * stage
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + (base - raw) + 2 * stage);
+  uint64_t* empty = full + 2;
+  const int items = B * H;
+  auto load = [&](int w, int st) {  // item w's K, V and Q into stage st
+    mbar_expect_tx(&full[st], stage);
+    const int b = w / H, h = w - b * H;
+    const uint32_t at = base + st * stage;
+    tma_load(at, map_kv, &full[st], C + h * kHeadDim, 0, b);
+    tma_load(at + box, map_kv, &full[st], 2 * C + h * kHeadDim, 0, b);
+    tma_load(at + 2 * box, map_q, &full[st], h * kHeadDim, 0, b);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    mbar_init(&empty[0], kThreads / 32);
+    mbar_init(&empty[1], kThreads / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (static_cast<int>(blockIdx.x) < items) load(blockIdx.x, 0);
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  const int tiles = (seq + kQueryTile - 1) / kQueryTile;
+  int i = 0;
+  for (int w = blockIdx.x; w < items; w += gridDim.x, ++i) {
+    const int st = i & 1;
+    if (threadIdx.x == 0 && w + static_cast<int>(gridDim.x) < items) {
+      if (i >= 1) mbar_wait(&empty[st ^ 1], ((i - 1) >> 1) & 1);  // item i - 1 released it
+      load(w + gridDim.x, st ^ 1);
+    }
+    mbar_wait(&full[st], (i >> 1) & 1);
+    const int b = w / H, h = w - b * H;
+    const uint32_t at = base + st * stage;
+    // the block's tiles in sequence, tile k to warpgroup k % kWarpgroups: a
+    // function of the item counter, which ptxas can see is uniform
+    for (int qt = (wg + kWarpgroups - (i * tiles) % kWarpgroups) % kWarpgroups; qt < tiles;
+         qt += kWarpgroups)
+      tile64<NS>(out + static_cast<size_t>(b) * seq * C, seq, C, h * kHeadDim,
+                       qt * kQueryTile, causal, at + 2 * box, at, at + box);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+}
+
+// --- the launch ----------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, reached through the runtime (no link to libcuda)
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// The packed qkv as a 3-D tensor map: dims (3C channels, T rows, B images),
+// a box of 64 channels x `rows` rows x 1 image, 128-byte swizzle; rows past
+// T read as zeros. TMA needs a 16-byte aligned base and row stride (the
+// wrapper checks the base; 3C bf16 is a multiple of 384 bytes).
+inline int make_qkv_map(CUtensorMap* map, const void* qkv, int B, int seq, int C, int rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return kTensorMapError;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(3 * C), static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(3 * C) * sizeof(bf16),
+                                 static_cast<cuuint64_t>(seq) * 3 * C * sizeof(bf16)};
+  const cuuint32_t box[3] = {kHeadDim, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(qkv),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTensorMapError;
+}
+
+// Launches `short_kernel` (NS = kShortSteps, T <= 80) or `long_kernel`
+// (kMaxSteps), __global__ wrappers of attention_block, on `stream`: one
+// block an SM, or one an item where there are fewer. Returns the first
+// error (0 on success; kTensorMapError for a refused tensor map). The
+// caller checks the domain: bf16, C = 64 H, 1 <= T <= 208, 16-byte
+// aligned qkv.
+template <typename Kernel>
+inline int launch(Kernel short_kernel, Kernel long_kernel, const void* qkv, void* out, int B,
+                  int seq, int C, int H, int causal, cudaStream_t stream) {
+  const int ns = key_steps(seq);
+  const Kernel kernel = ns == kShortSteps ? short_kernel : long_kernel;
+  CUtensorMap map_kv, map_q;
+  if (int rc = make_qkv_map(&map_kv, qkv, B, seq, C, 16 * ns)) return rc;
+  if (int rc = make_qkv_map(&map_q, qkv, B, seq, C, q_box_rows(ns))) return rc;
+  const size_t smem = smem_bytes(seq);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<std::min(B * H, sms), kThreads, smem, stream>>>(map_kv, map_q, static_cast<bf16*>(out),
+                                                           B, seq, C, H, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace attn90

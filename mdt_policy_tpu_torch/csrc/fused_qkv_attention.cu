@@ -2,11 +2,15 @@
 // kernel B1.
 //
 // Replaces the Pallas TPU kernel mdt_policy_tpu/ops/fused_qkv_attention.py
-// (fused_qkv_attention: _kernel / _kernel_pair). The contract, the design and
-// what bounds it on the H100 are written at the top of mha_core.cuh, which
-// holds the kernel's body; the attention half-block (attention_halfblock.cu)
-// runs the same body between its projections.
+// (fused_qkv_attention: _kernel / _kernel_pair). Two bodies, one contract:
+// bf16 calls with 64-wide heads and T <= 208 (every tower call) run the
+// tensor-core body of attention_sm90.cuh; every other call (f32, other head
+// widths) runs mha_core.cuh. The wrapper (ops/fused_qkv_attention.py) picks
+// the body; each file's header holds its design and what bounds it. The
+// attention half-block (attention_halfblock.cu) runs the same bodies between
+// its projections.
 
+#include "attention_sm90.cuh"
 #include "mha_core.cuh"
 
 namespace {
@@ -17,6 +21,16 @@ fused_qkv_attention_kernel(const T* __restrict__ qkv, T* __restrict__ out,
                            int seq, int C, int dh, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem[];
   mha::mha_block<T>(qkv, out, seq, C, dh, scale, causal, smem);
+}
+
+template <int NS>
+__global__ void __launch_bounds__(attn90::kThreads, 1)
+fused_qkv_attention_kernel_sm90(const __grid_constant__ CUtensorMap map_kv,
+                                const __grid_constant__ CUtensorMap map_q,
+                                attn90::bf16* __restrict__ out, int B, int seq, int C, int H,
+                                int causal) {
+  extern __shared__ __align__(128) unsigned char smem_sm90[];
+  attn90::attention_block<NS>(&map_kv, &map_q, out, B, seq, C, H, causal, smem_sm90);
 }
 
 }  // namespace
@@ -30,7 +44,7 @@ size_t mdt_fused_qkv_attention_smem_bytes(int seq, int C, int H, int is_bf16) {
   return is_bf16 ? mha::smem_bytes<__nv_bfloat16>(seq, dh) : mha::smem_bytes<float>(seq, dh);
 }
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
+// Launches the mha_core body on `stream`; returns cudaGetLastError() (0 on success).
 int mdt_fused_qkv_attention(const void* qkv, void* out, int B, int seq, int C, int H,
                             int causal, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -38,6 +52,18 @@ int mdt_fused_qkv_attention(const void* qkv, void* out, int B, int seq, int C, i
                                                   qkv, out, B, seq, C, H, causal, s)
                  : mha::launch_mha<float>(fused_qkv_attention_kernel<float>,
                                           qkv, out, B, seq, C, H, causal, s);
+}
+
+// Shared memory of one block of the tensor-core body.
+size_t mdt_fused_qkv_attention_sm90_smem_bytes(int seq) { return attn90::smem_bytes(seq); }
+
+// Launches the tensor-core body (bf16, C = 64 H, 1 <= T <= 208, 16-byte
+// aligned qkv) on `stream`; returns the first error (0 on success).
+int mdt_fused_qkv_attention_sm90(const void* qkv, void* out, int B, int seq, int C, int H,
+                                 int causal, void* stream) {
+  return attn90::launch(fused_qkv_attention_kernel_sm90<attn90::kShortSteps>,
+                        fused_qkv_attention_kernel_sm90<attn90::kMaxSteps>, qkv, out, B, seq, C,
+                        H, causal, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

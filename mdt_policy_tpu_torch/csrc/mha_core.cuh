@@ -25,8 +25,9 @@
 // and latency. At training batch it does CUDA-core FMAs only; its operational
 // intensity (~2*T*dh FLOPs per 2*dh*2 bytes of K/V per query) stays far below
 // the ~295 FLOP/byte bf16 ridge, but the work is done on FP32 units, not the
-// tensor cores. A later change moves QK^T and P.V onto wgmma tiles fed by TMA
-// (one warpgroup per 64 query rows) and keeps K/V resident across tiles.
+// tensor cores. So bf16 calls with 64-wide heads (every tower call) run the
+// wgmma body fed by TMA in attention_sm90.cuh instead; this body serves f32
+// and the other head widths.
 //
 // A translation unit defines its own __global__ entry around mha_block (so
 // that each library's kernel keeps its own name in a profile) and launches it

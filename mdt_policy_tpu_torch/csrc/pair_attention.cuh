@@ -41,8 +41,8 @@
 // ~61 GFLOP, so the bytes bound it (0.184 ms at 3.35 TB/s, against 0.062 ms
 // of bf16 tensor-core time). This kernel reads K/V once per query tile (4
 // times an image, from L2 after the first), waits for each image's copy
-// before its products, and issues mma.sync at a fraction of wgmma's rate; a
-// TMA-fed, double-buffered wgmma version is the redesign of B1.
+// before its products, and runs mma.sync at a fraction of wgmma's rate; the
+// TMA-fed, double-buffered wgmma body of B1 is attention_sm90.cuh.
 
 #pragma once
 

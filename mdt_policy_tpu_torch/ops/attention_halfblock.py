@@ -20,7 +20,9 @@ scores to bf16 first, and at f32 the two agree).
 
 On a CUDA tensor the wrapper launches `csrc/attention_halfblock.cu` (three
 kernels: norm-prologue qkv GEMM, attention core, residual projection GEMM;
-built with nvcc at first use) or raises; the kernels take bf16 only. On a
+built with nvcc at first use) or raises; the kernels take bf16 only. The
+attention core runs the body B1 would run for the same call
+(`fused_qkv_attention._sm90_body`). On a
 CPU tensor it runs the plain version. The backward is autograd through the
 plain version, like the TPU kernel's custom VJP; the frozen towers never
 need it.
@@ -36,7 +38,7 @@ import torch
 
 from . import _build
 from ._plain_backward import PlainBackward
-from .fused_qkv_attention import fused_qkv_attention_reference
+from .fused_qkv_attention import _sm90_body, fused_qkv_attention_reference
 
 __all__ = ["attention_halfblock", "attention_halfblock_reference", "norm_reference",
            "dot_reference"]
@@ -134,9 +136,9 @@ def check_gemm_shapes(name: str, x: torch.Tensor, widths, tensors) -> None:
 def _library() -> ctypes.CDLL:
     lib = _build.load_library("attention_halfblock")
     ptr, i = ctypes.c_void_p, ctypes.c_int
-    lib.mdt_attention_halfblock.argtypes = [ptr] * 11 + [i] * 5 + [ctypes.c_float, i, ptr]
+    lib.mdt_attention_halfblock.argtypes = [ptr] * 11 + [i] * 5 + [ctypes.c_float, i, i, ptr]
     lib.mdt_attention_halfblock.restype = i
-    lib.mdt_attention_halfblock_smem_bytes.argtypes = [i, i, i]
+    lib.mdt_attention_halfblock_smem_bytes.argtypes = [i, i, i, i]
     lib.mdt_attention_halfblock_smem_bytes.restype = ctypes.c_size_t
     return lib
 
@@ -154,7 +156,8 @@ def _launch(x, g, b, w_qkv, b_qkv, w_proj, b_proj, gamma, *, n_heads: int,
     if B > 65535:
         raise ValueError(f"attention_halfblock: batch {B} exceeds the grid's z limit")
     lib = _library()
-    smem = lib.mdt_attention_halfblock_smem_bytes(T, C, n_heads)
+    sm90 = int(_sm90_body(x.dtype, T, C, n_heads))  # B1's routing of the attention core
+    smem = lib.mdt_attention_halfblock_smem_bytes(T, C, n_heads, sm90)
     if smem > _MAX_SMEM_PER_BLOCK:
         raise ValueError(f"attention_halfblock: T={T}, dh={C // n_heads} needs {smem} "
                          f"bytes of shared memory per block, over {_MAX_SMEM_PER_BLOCK}")
@@ -167,7 +170,7 @@ def _launch(x, g, b, w_qkv, b_qkv, w_proj, b_proj, gamma, *, n_heads: int,
             x.data_ptr(), g.data_ptr(), _ptr(b), w_qkv.data_ptr(), b_qkv.data_ptr(),
             w_proj.data_ptr(), b_proj.data_ptr(), _ptr(gamma), qkv.data_ptr(),
             att.data_ptr(), out.data_ptr(), B, T, C, n_heads, int(norm == "ln"),
-            eps, int(causal), stream)
+            eps, int(causal), sm90, stream)
     if rc != 0:
         raise RuntimeError(f"attention_halfblock: CUDA launch failed with error {rc} "
                            f"for x {tuple(x.shape)}, n_heads={n_heads}, norm={norm}")

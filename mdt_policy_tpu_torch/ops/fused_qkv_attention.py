@@ -9,8 +9,12 @@ that the out-projection takes.
 On a CUDA tensor the wrapper launches the hand-written kernel in
 `csrc/fused_qkv_attention.cu` (built with nvcc at first use, see `_build.py`)
 or raises; on a CPU tensor it runs `fused_qkv_attention_reference`, the
-plain PyTorch version of the same math. The backward, like the TPU kernel's
-custom VJP, goes through the plain version; the frozen towers never need it.
+plain PyTorch version of the same math. The kernel has two bodies under one
+contract: `_sm90_body` sends bf16 calls with 64-wide heads and T <= 208 (every
+tower call) to the tensor-core body `csrc/attention_sm90.cuh`, and every
+other call (f32, other head widths) to `csrc/mha_core.cuh`. The backward,
+like the TPU kernel's custom VJP, goes through the plain version; the frozen
+towers never need it.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ from ._plain_backward import PlainBackward
 __all__ = ["fused_qkv_attention", "fused_qkv_attention_reference"]
 
 _MAX_SMEM_PER_BLOCK = 232_448  # bytes of shared memory a Hopper block may use
+SM90_HEAD_DIM = 64   # head width of the tensor-core body (attention_sm90.cuh)
+SM90_MAX_SEQ = 208   # longest T it takes: 13 steps of 16 keys held in registers
 
 
 def fused_qkv_attention_reference(qkv: torch.Tensor, n_heads: int,
@@ -65,6 +71,19 @@ def _check(qkv: torch.Tensor, n_heads: int) -> None:
                          f"n_heads={n_heads}")
     if not qkv.is_contiguous():
         raise ValueError("fused_qkv_attention: qkv must be contiguous")
+    if qkv.device.type == "cuda" and _sm90_body(qkv.dtype, qkv.shape[1], C, n_heads) \
+            and qkv.data_ptr() % 16:
+        raise ValueError("fused_qkv_attention: the tensor-core body reads qkv in "
+                         "16-byte pieces; its base address must be 16-byte aligned")
+
+
+def _sm90_body(dtype: torch.dtype, T: int, C: int, n_heads: int) -> bool:
+    """Whether a call runs the tensor-core body (`csrc/attention_sm90.cuh`):
+    bf16, 64-wide heads, 1 <= T <= 208. Its rows (3C bf16 = 384 H bytes) are
+    then 16-byte multiples; the base address is `_check`'s. Every other
+    call runs `csrc/mha_core.cuh`."""
+    return (dtype == torch.bfloat16 and n_heads > 0 and C == SM90_HEAD_DIM * n_heads
+            and 1 <= T <= SM90_MAX_SEQ)
 
 
 @functools.cache
@@ -77,6 +96,11 @@ def _library() -> ctypes.CDLL:
     lib.mdt_fused_qkv_attention_smem_bytes.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.mdt_fused_qkv_attention_smem_bytes.restype = ctypes.c_size_t
+    lib.mdt_fused_qkv_attention_sm90.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.mdt_fused_qkv_attention_sm90.restype = ctypes.c_int
+    lib.mdt_fused_qkv_attention_sm90_smem_bytes.argtypes = [ctypes.c_int]
+    lib.mdt_fused_qkv_attention_sm90_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -88,7 +112,9 @@ def _launch(qkv: torch.Tensor, n_heads: int, causal: bool) -> torch.Tensor:
         raise ValueError(f"fused_qkv_attention: batch {B} exceeds the grid's "
                          "z limit of 65535")
     lib = _library()
-    smem = lib.mdt_fused_qkv_attention_smem_bytes(T, C, n_heads, is_bf16)
+    sm90 = _sm90_body(qkv.dtype, T, C, n_heads)
+    smem = lib.mdt_fused_qkv_attention_sm90_smem_bytes(T) if sm90 else \
+        lib.mdt_fused_qkv_attention_smem_bytes(T, C, n_heads, is_bf16)
     if smem > _MAX_SMEM_PER_BLOCK:
         raise ValueError(f"fused_qkv_attention: T={T}, dh={C // n_heads} needs "
                          f"{smem} bytes of shared memory per block, over "
@@ -96,9 +122,13 @@ def _launch(qkv: torch.Tensor, n_heads: int, causal: bool) -> torch.Tensor:
     out = torch.empty((B, T, C), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        rc = lib.mdt_fused_qkv_attention(qkv.data_ptr(), out.data_ptr(), B, T,
-                                         C, n_heads, int(causal), is_bf16,
-                                         stream)
+        if sm90:
+            rc = lib.mdt_fused_qkv_attention_sm90(qkv.data_ptr(), out.data_ptr(), B,
+                                                  T, C, n_heads, int(causal), stream)
+        else:
+            rc = lib.mdt_fused_qkv_attention(qkv.data_ptr(), out.data_ptr(), B, T,
+                                             C, n_heads, int(causal), is_bf16,
+                                             stream)
     if rc != 0:
         raise RuntimeError(f"fused_qkv_attention: CUDA launch failed with "
                            f"error {rc} for qkv {tuple(qkv.shape)} "

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from mdt_policy_tpu_torch.ops.fused_qkv_attention import (
-    fused_qkv_attention, fused_qkv_attention_reference)
+    _sm90_body, fused_qkv_attention, fused_qkv_attention_reference)
 
 # f32 on both sides, same math; the two differ only in summation order
 RTOL = ATOL = 1e-5
@@ -25,6 +25,8 @@ RTOL = ATOL = 1e-5
     (4, 196, 48, 6, False),   # Voltron-shaped, narrow
     (3, 8, 16, 2, True),      # causal (CLIP text regime)
     (2, 77, 32, 4, True),
+    (2, 197, 128, 2, False),  # dh = 64: the Pallas head-pair kernel _kernel_pair
+    (2, 77, 128, 2, True),    # ... causal
 ])
 def test_plain_b1_matches_pallas_kernel(B, T, C, H, causal):
     from mdt_policy_tpu.ops.fused_qkv_attention import fused_qkv_attention as jax_fused
@@ -33,6 +35,22 @@ def test_plain_b1_matches_pallas_kernel(B, T, C, H, causal):
     out = fused_qkv_attention(torch.from_numpy(qkv), H, causal)
     assert out.shape == (B, T, C) and out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype,T,C,H,expected", [
+    (torch.bfloat16, 1, 384, 6, True),
+    (torch.bfloat16, 77, 512, 8, True),      # CLIP text
+    (torch.bfloat16, 196, 384, 6, True),     # Voltron
+    (torch.bfloat16, 197, 768, 12, True),    # CLIP vision
+    (torch.bfloat16, 208, 192, 3, True),     # the longest T; an odd head count
+    (torch.float32, 196, 384, 6, False),     # f32 stays on mha_core
+    (torch.bfloat16, 196, 288, 6, False),    # dh = 48
+    (torch.bfloat16, 196, 256, 2, False),    # dh = 128
+    (torch.bfloat16, 209, 384, 6, False),    # T past the registers' 13 key steps
+    (torch.bfloat16, 0, 384, 6, False),
+])
+def test_sm90_routing_predicate(dtype, T, C, H, expected):
+    assert _sm90_body(dtype, T, C, H) is expected
 
 
 def test_wrapper_counts_no_launch_on_cpu():
@@ -110,3 +128,71 @@ def test_cuda_kernel_matches_float64_attention(causal):
     out = fused_qkv_attention(qkv, H, causal)
     torch.cuda.synchronize()
     assert (out.double() - ref).abs().max().item() <= 1e-5
+
+
+# The tensor-core body (csrc/attention_sm90.cuh) at every T of its domain's
+# edges and of the towers, batches from one image to the train step's, and
+# the towers' widths; each case non-causal and causal
+SM90_CASES = [(1, 1, 384), (3, 16, 512), (17, 77, 512), (256, 77, 512), (3, 196, 384),
+              (256, 196, 384), (17, 197, 768), (1, 208, 768), (3, 208, 512), (256, 197, 768)]
+
+
+def _needs_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+
+
+def _float64_attention(qkv, H, causal):
+    B, T, C3 = qkv.shape
+    C = C3 // 3
+    q, k, v = (t.double().reshape(B, T, H, C // H).transpose(1, 2)
+               for t in qkv.split(C, dim=-1))
+    scores = q @ k.transpose(-1, -2) * (C // H) ** -0.5
+    if causal:
+        keep = torch.ones(T, T, dtype=torch.bool, device=qkv.device).tril()
+        scores = scores.masked_fill(~keep, float("-inf"))
+    return (scores.softmax(-1) @ v).transpose(1, 2).reshape(B, T, C)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("B,T,C", SM90_CASES)
+def test_cuda_sm90_body_matches_plain_and_float64(B, T, C, causal):
+    """The bf16 tensor-core body against its plain version (same roundings,
+    bound 1e-2: chip_smoke.py's KERNEL_TOL) and against float64 attention of
+    the same bf16 inputs (bound 1e-2 x max(1, max|ref|): the output's bf16
+    rounding, 2^-9 relative, and the probabilities', 2^-9 of each p times
+    |v|; a causal row over few keys has outputs of |v|, up to ~4.5)."""
+    _needs_cuda()
+    H = C // 64
+    assert _sm90_body(torch.bfloat16, T, C, H)
+    gen = torch.Generator("cuda").manual_seed(T + B)
+    qkv = torch.randn((B, T, 3 * C), generator=gen, device="cuda").bfloat16()
+    before = fused_qkv_attention.launches
+    out = fused_qkv_attention(qkv, H, causal)
+    torch.cuda.synchronize()
+    assert fused_qkv_attention.launches == before + 1
+    assert out.shape == (B, T, C) and out.dtype == torch.bfloat16
+    assert bool(torch.isfinite(out).all())
+    ref = fused_qkv_attention_reference(qkv, H, causal)
+    assert (out.float() - ref.float()).abs().max().item() <= 1e-2
+    f64 = _float64_attention(qkv, H, causal)
+    assert (out.double() - f64).abs().max().item() <= 1e-2 * max(1.0, f64.abs().max().item())
+    assert torch.equal(out, fused_qkv_attention(qkv, H, causal))  # no run-to-run variation
+
+
+@pytest.mark.cuda
+def test_cuda_sm90_body_refuses_misaligned_qkv():
+    """A contiguous view whose base lies 2 bytes past an allocation is not
+    16-byte aligned: the tensor-core body raises before any launch."""
+    _needs_cuda()
+    B, T, C = 2, 196, 384
+    buf = torch.zeros(B * T * 3 * C + 1, dtype=torch.bfloat16, device="cuda")
+    qkv = buf[1:].view(B, T, 3 * C)
+    assert qkv.is_contiguous() and qkv.data_ptr() % 16
+    before = fused_qkv_attention.launches
+    with pytest.raises(ValueError, match="aligned"):
+        fused_qkv_attention(qkv, 6)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_qkv_attention(buf[:B * T * 3 * C].view(B, 3 * C, T).transpose(1, 2), 6)
+    assert fused_qkv_attention.launches == before

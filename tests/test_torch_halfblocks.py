@@ -327,12 +327,17 @@ def test_tower_block_halfblock_route_matches_b1_b3_route_and_jax(name):
 # ---------------------------------------------------------------------------
 
 # (kernel, tower, B, T, C, heads or hidden): the extraction path's shapes at a
-# batch of 4 images or sentences (the ragged row tails of T = 196, 197, 77);
+# batch of 4 images or sentences (the ragged row tails of T = 196, 197, 77),
+# and B4 at extraction's batches;
 # inputs and bounds are chip_smoke.py's (`halfblock_inputs`, `HALFBLOCK_TOL`)
 CUDA_SHAPES = [("b4", "voltron", 4, 196, 384, 6), ("b5", "voltron", 4, 196, 384, 1536),
                ("b4", "clip_vision", 4, 197, 768, 12),
                ("b5", "clip_vision", 4, 197, 768, 3072),
-               ("b4", "clip_text", 4, 77, 512, 8), ("b5", "clip_text", 4, 77, 512, 2048)]
+               ("b4", "clip_text", 4, 77, 512, 8), ("b5", "clip_text", 4, 77, 512, 2048),
+               # B4 at extraction's shapes (chip_smoke.py's HALFBLOCK_SHAPES), where
+               # its attention core runs B1's tensor-core body on full waves
+               ("b4", "voltron", 128, 196, 384, 6), ("b4", "clip_vision", 64, 197, 768, 12),
+               ("b4", "clip_text", 512, 77, 512, 8)]
 
 
 def _needs_cuda():
