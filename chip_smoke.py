@@ -22,31 +22,48 @@ step from the rows it wrote. Prints one JSON line per phase:
               the least time the card could take (`bound_ms`); each B1 row
               names the body it ran (`sm90`, the tensor cores, for bf16;
               `mha_core` for f32); B2 at the replans' shapes at B=1 and B=32 and the four of the JAX
-              package's ops/bench_pallas.py. Then B4 and B5 (the attention
-              and MLP half-blocks) at the extraction's six shapes against
+              package's ops/bench_pallas.py, then at edge cases (T=1, T=32,
+              D=128, D off the vector width, several rows a block;
+              contiguous, strided and misaligned inputs), f32 also against
+              float64; B2 and B3 rows carry the wrapper's host microseconds
+              a call (`host_us`, 1000 calls, no synchronise). Then B4 and
+              B5 (the attention and MLP half-blocks) at the extraction's six shapes against
               their plain versions in bf16 and in float64, with the kernel,
               device, plain and unfused route (B3 + F.linear + B1 or the
               activation + F.linear) times; device kernels per call must be
               3 (B4) and 2 (B5).
-  4. replan   MDT-V: reset() and 20 step() calls at B=1; per replan B1 24
-              then 12, B3 50 then 25, B2 44 and 44 (4 encoder blocks + 4
-              decoder blocks x 10 DDIM steps).
+  4. replan   MDT-V: reset() and 20 step() calls at B=1 on the eager policy
+              (`cuda_graph=False`); per replan B1 24 then 12, B3 50 then 25,
+              B2 44 and 44 (4 encoder blocks + 4 decoder blocks x 10 DDIM
+              steps).
+     graph    30 steps on the graph policy: the same counts per replan (a
+              captured kernel counts at each replay, not at the capture);
+              the two replays with the goal cached launch those kernels by
+              name in the profiler too; the graph and the eager policy from
+              one seed give the same chunks bit for bit for a text goal and
+              a goal image over two replans with other frames.
   5. e2e      the same replan through the kernels and through the plain
               versions: the (1, 10, 7) chunks must agree.
-  6. timing   replan p50/p90 at B=1 and B=32, goal-encode time; then 5
-              replans under the profiler (device events and busy share).
+  6. timing   replan p50/p90 at B=1 and B=32 of the graph and the eager
+              policy in turns (graph, eager, eager, graph), the capture's ms
+              and reserved memory, goal-encode time; then 5 replans of each
+              under the profiler (device events and busy share).
   7. b2_ab    MDT-V replan p50/p90 at B=1 and B=32 with B2 and with B2
               swapped alone for `sdpa`, in turns (B2, sdpa, sdpa, B2).
   8. replan, e2e, timing  the same three for MDT: B1 12 then 0, B3 25 then
               0, B2 64 and 64 (4 + 6 x 10) per replan.
-  9. rollout  per family, `evaluate_policy` over 4 chains (200 px static,
-              84 px gripper frames, episodes of 360 steps) through
+  9. rollout  per family, on the graph policy, `evaluate_policy` over 4
+              chains (200 px static, 84 px gripper frames, episodes of 360
+              steps) through
               `make_rollout_policy`, a scripted oracle solving every task at
               25 steps but one that never solves: results, env steps and
               replans per chain must follow from that rule, actions finite;
               env steps/s and replans/s. Then `evaluate_policy_batched`
               over 32 fake envs and 32 chains, one B=32 replan per policy
-              call: results and policy calls by the same rule.
+              call: results and policy calls by the same rule. Per family,
+              B2 and B3 RMSNorm launch a replan's worth per replan and per
+              warm-up call before a capture, B1 and B3 LayerNorm at least
+              that.
  10. train    3 train steps at B=128 per stream: finite losses and
               grad_norm, trainables and EMA moved, frozen towers not; per
               step 60 B1, 157 B3 and 0 B2 launches (dropout is on).
@@ -81,13 +98,27 @@ path; V1 (`attn_pair_grid`, main row Voltron bB=16) and V3 (`attn_pair_v3`,
 main row Voltron bB=16 +mxu_sum +exp2) belong to the `attn_variants` path,
 and the script fails if either was not launched there. Any failure raises
 and exits non-zero; without a CUDA device it exits 1.
+
+    python3 chip_smoke.py --replan-ab build/pr1 . . build/pr1
+
+times the MDT-V B=1 eager replan of several trees of the port in turns on
+one card instead: each argument is the root of a tree that holds an
+`mdt_policy_tpu_torch` package (an older commit unpacked with `git archive`
+into a directory that git ignores, or `.`), run in its own process in the
+order given, since the packages share a name. Each builds the tree's
+kernels and its `MDTVAgentNet(MDTVConfig())` with seeded random weights,
+caches a text goal, times REPLANS_TREE_AB replans as `timing` does, and
+profiles 5: device ms and events a replan, and the host operators with the
+most self time. One JSON line a tree, then a summary line.
 """
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import contextlib
 import copy
+import inspect
 import json
 import os
 import subprocess
@@ -124,11 +155,16 @@ KERNEL_SHAPES = (
 # bits, 3.9e-3 relative on values of order 1), and a probability can round
 # to the neighbouring bf16 value when the two f32 scores differ in the last bit.
 KERNEL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
-# B3 (function, name, rows, D): Voltron at one replan (2 images) and at one
-# train scope (256 images), CLIP vision (128 images x 197), CLIP text (128
-# goals x 77), the foresight decoder (128 x (4 context + 98 patch tokens))
+# B3 (function, name, rows, D): at one replan Voltron's RMSNorms and its
+# encoder_norm (2 images), the CLIP text tower (one goal) and the CLIP vision
+# tower (one goal image); at one train scope Voltron (256 images), CLIP
+# vision (128 images x 197), CLIP text (128 goals x 77), the foresight
+# decoder (128 x (4 context + 98 patch tokens))
 NORM_SHAPES = (
     ("rms", "voltron", 392, 384),
+    ("ln", "voltron_encoder_norm", 392, 384),
+    ("ln", "clip_text", 77, 512),
+    ("ln", "clip_vision", 197, 768),
     ("rms", "voltron_train", 50176, 384),
     ("ln", "clip_vision_train", 25216, 768),
     ("ln", "clip_text_train", 9856, 512),
@@ -148,8 +184,11 @@ E2E_REL_TOL = 2e-2
 # relative to max(1, |value|): the same bf16 one-ulp differences in the
 # frozen towers' outputs, averaged over 128 samples per scope.
 TRAIN_E2E_REL_TOL = 2e-2
-REPLANS_TIMED = 100
-REPLANS_AB = 25  # per turn of the B2 / sdpa A/B (4 turns)
+REPLANS_TIMED = 50  # per turn of the graph / eager timing (4 turns)
+REPLANS_AB = 15  # per turn of the B2 / sdpa A/B (4 turns)
+REPLANS_TREE_AB = 100  # per tree of --replan-ab
+# host-clock calls of a wrapper, with no synchronise, for its host cost
+HOST_CALLS = 1000
 # B2 (name, B, H, T, D, causal): the denoisers' self-attention at the
 # replan's B=1 (MDT-V: 4-token encoder, 10-token causal decoder, D=48; MDT:
 # 3-token encoder, causal decoder, D=64), the same at the batched rollout's
@@ -162,6 +201,26 @@ SMALL_SEQ_SHAPES = (
     ("bench_dec_T10", 1024, 8, 10, 48, True), ("bench_enc_T4", 1024, 8, 4, 48, False),
     ("bench_enc_T23", 1024, 8, 23, 48, False), ("bench_dec_T10_B4096", 4096, 8, 10, 48, True),
 )
+# B2 edge cases (name, B, H, T, D, causal, layout): one token; several rows
+# a block (T <= 4 at many rows); the largest T and D; D not a multiple of
+# the 16-byte vector (36: a vector of f32 but not of bf16; 50: of neither);
+# inputs as the denoiser's (B, T, H, D) views ("bthd"), contiguous, with a
+# last stride of 2 ("strided") or a base one element off 16 bytes
+# ("misaligned"): the last two take the element-wise staging path
+SMALL_SEQ_EDGES = (
+    ("T1", 4, 8, 1, 48, True, "bthd"), ("T1_rows8", 512, 8, 1, 48, False, "contiguous"),
+    ("T2_rows4", 200, 8, 2, 64, True, "bthd"),
+    ("T32_D128", 3, 3, 32, 128, False, "contiguous"),
+    ("T32_D128_causal", 2, 8, 32, 128, True, "bthd"),
+    ("D128", 4, 8, 10, 128, True, "bthd"), ("D36", 4, 8, 10, 36, False, "bthd"),
+    ("D50", 4, 8, 7, 50, True, "contiguous"),
+    ("strided", 4, 8, 10, 48, True, "strided"),
+    ("misaligned", 4, 8, 10, 48, False, "misaligned"),
+    ("misaligned_T3", 64, 8, 3, 64, False, "misaligned"),
+)
+# |f32 B2 - float64 of its plain version| relative to max(1, max|ref|): f32
+# rounding of q*scale, of a D-term sum, of exp and of a T-term sum, ~1e-6
+SMALL_SEQ_F64_TOL = 1e-5
 # rollout phase: CALVIN's camera sizes, chains and episode length, and the
 # scripted oracle's step at which every task but one solves
 ROLLOUT_CHAINS, ROLLOUT_EP_LEN, ROLLOUT_SOLVE_AT = 4, 360, 25
@@ -222,6 +281,22 @@ def small_seq_bound(dtype_name: str, ref, v) -> float:
     return 2.0 ** -7 * amax + 2.0 ** -8 * v.float().abs().max().item()
 
 
+def small_seq_inputs(torch, B, H, T, D, layout, dtype, gen, device):
+    """q, k, v (B, H, T, D) in one of SMALL_SEQ_EDGES' layouts."""
+    def one():
+        if layout == "bthd":
+            return torch.randn((B, T, H, D), generator=gen, device=device).to(dtype) \
+                .transpose(1, 2)
+        if layout == "strided":
+            return torch.randn((B, H, T, 2 * D), generator=gen, device=device).to(dtype) \
+                [..., ::2]
+        if layout == "misaligned":
+            flat = torch.randn((B * H * T * D + 1,), generator=gen, device=device).to(dtype)
+            return flat[1:].view(B, H, T, D)
+        return torch.randn((B, H, T, D), generator=gen, device=device).to(dtype)
+    return one(), one(), one()
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -239,6 +314,21 @@ def event_ms(fn, iters: int, torch) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, torch, calls: int = HOST_CALLS) -> float:
+    """Host microseconds per call of `fn` over `calls` calls with no
+    synchronise between them: what a launch costs the host, where the
+    device's time per call is the shorter (else the full launch queue
+    holds the host back and this reads the device's pace)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
 
 
 def device_ms(fn, kernel_name: str, iters: int, torch, per_call: bool = False):
@@ -394,7 +484,7 @@ def phase_kernel_b3(torch, device):
                                8 * n * D, dtype_name)
             row = {"phase": "kernel", "kernel": fn, "shape": name, "x": [n, D],
                    "dtype": dtype_name, "max_abs_err": err, "bound": bound,
-                   "ms": event_ms(kernel, iters, torch),
+                   "ms": event_ms(kernel, iters, torch), "host_us": host_us(kernel, torch),
                    "device_ms": device_ms(kernel, "fused_norm_kernel", 20, torch),
                    "plain_ms": event_ms(plain, iters, torch),
                    "library_ms": event_ms(library, iters, torch),
@@ -433,6 +523,7 @@ def phase_kernel_b2(torch, device):
                    "q": [B, H, T, D], "causal": causal, "dtype": dtype_name,
                    "max_abs_err": err, "bound": bound,
                    "ms": event_ms(lambda: small_seq_mha(q, k, v, causal), iters, torch),
+                   "host_us": host_us(lambda: small_seq_mha(q, k, v, causal), torch),
                    "device_ms": device_ms(lambda: small_seq_mha(q, k, v, causal),
                                           "small_seq_mha_kernel", 20, torch),
                    "plain_ms": event_ms(lambda: small_seq_mha_reference(q, k, v, causal),
@@ -442,6 +533,37 @@ def phase_kernel_b2(torch, device):
                    "bound_ms": bms, "bound_by": by}
             emit(row)
             if not err <= bound:
+                raise AssertionError(f"B2 disagrees with its plain version: {row}")
+            rows.append(row)
+    return rows
+
+
+def phase_kernel_b2_edges(torch, device):
+    """B2 against its plain version at SMALL_SEQ_EDGES in f32 and bf16, and
+    the f32 kernel against the plain version in float64."""
+    from mdt_policy_tpu_torch.ops.small_seq_mha import small_seq_mha, small_seq_mha_reference
+    gen = torch.Generator(device).manual_seed(5)
+    rows = []
+    for name, B, H, T, D, causal, layout in SMALL_SEQ_EDGES:
+        for dtype_name in ("float32", "bfloat16"):
+            q, k, v = small_seq_inputs(torch, B, H, T, D, layout, getattr(torch, dtype_name),
+                                       gen, device)
+            out = small_seq_mha(q, k, v, causal)
+            ref = small_seq_mha_reference(q, k, v, causal)
+            torch.cuda.synchronize()
+            row = {"phase": "kernel_edges", "kernel": "small_seq_mha", "shape": name,
+                   "q": [B, H, T, D], "causal": causal, "layout": layout,
+                   "dtype": dtype_name,
+                   "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+                   "bound": small_seq_bound(dtype_name, ref, v),
+                   "out_layout_bthd": out.transpose(1, 2).is_contiguous()}
+            if dtype_name == "float32":
+                f64 = small_seq_mha_reference(q.double(), k.double(), v.double(), causal)
+                row["max_abs_err_float64"] = (out.double() - f64).abs().max().item()
+                row["bound_float64"] = SMALL_SEQ_F64_TOL * max(1.0, f64.abs().max().item())
+            emit(row)
+            if not (row["max_abs_err"] <= row["bound"] and row["out_layout_bthd"]
+                    and row.get("max_abs_err_float64", 0.0) <= row.get("bound_float64", 0.0)):
                 raise AssertionError(f"B2 disagrees with its plain version: {row}")
             rows.append(row)
     return rows
@@ -597,7 +719,9 @@ def phase_replan(torch, net, device, launches: Launches, family: str):
     from mdt_policy_tpu_torch.agents import MDTVPolicy
     cfg = net.cfg
     obs, goal = make_inputs(torch, cfg, 1, seed=1, device=device)
-    policy = MDTVPolicy(net, generator=torch.Generator(device).manual_seed(1))
+    # eager here; phase_graph holds the graph policy to the same counts
+    policy = MDTVPolicy(net, generator=torch.Generator(device).manual_seed(1),
+                        cuda_graph=False)
     policy.reset()
     launches.reset()
     per_replan, actions = [], []
@@ -693,18 +817,30 @@ def phase_e2e(torch, net, device, launches: Launches, family: str):
     return err
 
 
-def replanner(torch, net, batch: int, device, seed: int = 4):
-    """A policy at `batch` parallel envs whose goal is encoded and cached,
-    and a function that runs one replan and fetches the action to the host."""
+def replanner(torch, net, batch: int, device, seed: int = 4, **policy_kwargs):
+    """A policy at `batch` parallel envs whose goal is encoded and cached
+    (and, unless `cuda_graph=False` is among `policy_kwargs`, whose replan
+    is captured), a function that runs one replan and fetches the action to
+    the host, the goal, and the first step's host ms and reserved device
+    memory (the capture's, with a graph)."""
     from mdt_policy_tpu_torch.agents import MDTVPolicy
     obs, goal = make_inputs(torch, net.cfg, batch, seed=seed, device=device)
-    policy = MDTVPolicy(net, generator=torch.Generator(device).manual_seed(seed + 1))
+    policy = MDTVPolicy(net, generator=torch.Generator(device).manual_seed(seed + 1),
+                        **policy_kwargs)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # what stays reserved after the step is what it holds
+    reserved, t0 = torch.cuda.memory_reserved(), time.perf_counter()
     policy.step(obs, goal)  # encodes and caches the goal
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    first = {"first_step_ms": seconds * 1e3,
+             "first_step_reserved_bytes": torch.cuda.memory_reserved() - reserved}
 
     def replan():
         policy.rollout_step_counter = 0  # the next step replans
         return policy.step(obs, goal).cpu()
-    return replan, goal
+    return replan, goal, first
 
 
 def event_times(torch, fn, n: int, warmup: int = 3):
@@ -724,26 +860,133 @@ def event_times(torch, fn, n: int, warmup: int = 3):
 
 
 def phase_timing(torch, net, device, smi, family: str):
-    """Replan latency at B=1 and B=32 (goal cached): CUDA events around
-    policy.step() with the action fetched to the host; the goal encode; then
-    5 replans under torch.profiler."""
+    """Replan latency at B=1 and B=32 (goal cached) of the graph policy and
+    the eager one in turns (graph, eager, eager, graph), REPLANS_TIMED
+    replans a turn: CUDA events around policy.step() with the action
+    fetched to the host; the capture's host ms and memory; the goal encode;
+    then 5 replans of each under torch.profiler."""
     rows = {}
     for batch in (1, 32):
         torch.cuda.reset_peak_memory_stats()
-        replan, goal = replanner(torch, net, batch, device)
-        times = event_times(torch, replan, REPLANS_TIMED)
+        routes = {"graph": replanner(torch, net, batch, device, cuda_graph=True),
+                  "eager": replanner(torch, net, batch, device, cuda_graph=False)}
+        times = {"graph": [], "eager": []}
+        for route in ("graph", "eager", "eager", "graph"):
+            times[route] += event_times(torch, routes[route][0], REPLANS_TIMED)
+        goal = routes["eager"][1]
         encode_ms = event_ms(lambda: net.encode_language_goal(goal["lang_tokens"]), 20, torch)
-        row = {"phase": "timing", "family": family, "batch": batch, "replans": len(times),
-               "replan_ms_p50": float(np.percentile(times, 50)),
-               "replan_ms_p90": float(np.percentile(times, 90)),
-               "replan_ms_min": min(times), "replan_ms_max": max(times),
+        row = {"phase": "timing", "family": family, "batch": batch,
+               "replans_per_route": len(times["graph"]),
+               **{f"replan_ms_{q}_{r}": float(np.percentile(t, p))
+                  for r, t in times.items() for q, p in (("p50", 50), ("p90", 90))},
+               **{f"replan_ms_min_{r}": min(t) for r, t in times.items()},
+               **{f"replan_ms_max_{r}": max(t) for r, t in times.items()},
+               "capture_ms": routes["graph"][2]["first_step_ms"],
+               "capture_reserved_bytes": routes["graph"][2]["first_step_reserved_bytes"],
+               "eager_first_step_ms": routes["eager"][2]["first_step_ms"],
                "goal_encode_ms": encode_ms,
                "peak_mem_bytes": torch.cuda.max_memory_allocated(), "card": smi}
         emit(row)
-        emit({"phase": "replan_profile", "family": family, "batch": batch,
-              **profile_calls(torch, replan, 5), "card": smi})
+        for route, (replan, _, _) in routes.items():
+            emit({"phase": "replan_profile", "family": family, "batch": batch,
+                  "route": route, **profile_calls(torch, replan, 5), "card": smi})
         rows[batch] = row
+        del routes
+        torch.cuda.empty_cache()
     return rows
+
+
+# the replan's kernels by device kernel name: B1, B3 LayerNorm (`kRms`
+# false), B3 RMSNorm (true), B2
+REPLAY_KERNELS = {
+    "fused_qkv_attention": lambda n: "fused_qkv_attention_kernel" in n,
+    "fused_layer_norm": lambda n: "fused_norm_kernel" in n and "false>" in n,
+    "fused_rms_norm": lambda n: "fused_norm_kernel" in n and "true>" in n,
+    "small_seq_mha": lambda n: "small_seq_mha_kernel" in n}
+
+
+def replay_counts(torch, prof):
+    """Launches of the replan's kernels in a profile, counted from the
+    device's own record by kernel name, and the distinct names matched."""
+    names = [e.name for e in _device_events(torch, prof)]
+    counts = {k: sum(map(match, names)) for k, match in REPLAY_KERNELS.items()}
+    return counts, sorted({n[:80] for n in names
+                           if any(m(n) for m in REPLAY_KERNELS.values())})
+
+
+def phase_graph(torch, net, device, launches: Launches, smi, family: str):
+    """The graph policy against the eager one: per replan of 30 steps (a
+    text goal), the launch counts (the goal's eager encode, then the
+    replay's kernels, counted at each replay) must be the eager policy's;
+    the replays of the two replans with the goal cached, whose only kernels
+    are the graph's, must launch the same kernels by name in the profiler;
+    from the same seed, both policies give the same chunks bit for bit for
+    a text goal and a goal image, over two replans with other frames each
+    (a replay sees its new inputs, not the first ones)."""
+    from torch.profiler import ProfilerActivity, profile
+    from mdt_policy_tpu_torch.agents import MDTVPolicy
+    cfg = net.cfg
+    obs, goal = make_inputs(torch, cfg, 1, seed=1, device=device)
+    policy = MDTVPolicy(net, generator=torch.Generator(device).manual_seed(1))
+    policy.step(obs, goal)  # captures the replan
+    first, cached = expected_replan_launches(cfg, family)
+    expected = [first, cached, cached]
+    by_name = {k: cached[k] for k in REPLAY_KERNELS}
+    policy.reset()  # forgets the goal: the first replan encodes it again
+    launches.reset()
+    per_replan, profiled, names = [], [], set()
+    for step in range(3 * cfg.multistep):
+        if step % cfg.multistep:
+            policy.step(obs, goal)
+            continue
+        before = launches.read()
+        if step == 0:
+            policy.step(obs, goal)
+        else:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                warm = torch.zeros(1024, device=device)  # kernels of no interest first
+                for _ in range(8):
+                    warm.add_(1.0)
+                torch.cuda.synchronize()
+                policy.step(obs, goal)
+                torch.cuda.synchronize()
+            counts, seen = replay_counts(torch, prof)
+            profiled.append(counts)
+            names.update(seen)
+        after = launches.read()
+        per_replan.append({k: after[k] - before[k] for k in after})
+
+    chunks = {}
+    for modality in ("lang", "vis"):
+        frames = [make_inputs(torch, cfg, 1, seed=s, device=device) for s in (40, 41)]
+        for route in ("graph", "eager"):
+            p = MDTVPolicy(net, generator=torch.Generator(device).manual_seed(42),
+                           cuda_graph=route == "graph")
+            chunks[(modality, route)] = [
+                p.plan(o, g if modality == "lang" else {"rgb_static_goal": o["rgb_static"][:, 0]})
+                for o, g in frames]
+    errs = {m: max((a - b).abs().max().item() for a, b in
+                   zip(chunks[(m, "graph")], chunks[(m, "eager")])) for m in ("lang", "vis")}
+    equal = {m: all(torch.equal(a, b) for a, b in
+                    zip(chunks[(m, "graph")], chunks[(m, "eager")])) for m in ("lang", "vis")}
+    # a replay that kept the first call's inputs would repeat its chunk
+    fresh = all(not torch.equal(*chunks[(m, "graph")]) for m in ("lang", "vis"))
+    row = {"phase": "graph", "family": family, "launches_per_replan": per_replan,
+           "expected_per_replan": expected, "replay_kernels_by_name": profiled,
+           "expected_by_name": by_name, "kernel_names": sorted(names),
+           "max_abs_err_graph_vs_eager": errs, "bit_equal": equal,
+           "second_replay_differs": fresh, "card": smi}
+    emit(row)
+    if per_replan != expected:
+        raise AssertionError(f"{family} graph policy launches {per_replan}, "
+                             f"expected {expected}")
+    if profiled != [by_name, by_name]:
+        raise AssertionError(f"{family} graph replays launched {profiled} by kernel "
+                             f"name, expected {by_name}")
+    # the same kernels on the same inputs: no bound but equality
+    if not (all(equal.values()) and fresh):
+        raise AssertionError(f"{family} graph and eager replans disagree: {row}")
+    return row
 
 
 def phase_b2_ab(torch, net, device, smi):
@@ -752,7 +995,8 @@ def phase_b2_ab(torch, net, device, smi):
     B=32; device events per replan of both routes from the profiler."""
     rows = []
     for batch in (1, 32):
-        replan, _ = replanner(torch, net, batch, device, seed=20)
+        # eager: a patch of the module does not reach a captured graph
+        replan, _, _ = replanner(torch, net, batch, device, seed=20, cuda_graph=False)
         times = {"b2": [], "sdpa": []}
         for route in ("b2", "sdpa", "sdpa", "b2"):
             with b2_as_sdpa() if route == "sdpa" else contextlib.nullcontext():
@@ -830,7 +1074,12 @@ def phase_rollout(torch, nets, device, launches: Launches, smi):
     chains, one B=BATCHED_ENVS replan per policy call. The scripted oracle
     solves every task at ROLLOUT_SOLVE_AT steps except the third task of the
     first chain, which never solves; results, env steps and replans must be
-    the ones that rule gives."""
+    the ones that rule gives. The policies replay captured graphs, whose
+    kernels count at each replay: B2 and B3 RMSNorm, which only the graph
+    runs, must launch a replan's worth per replan and per warm-up call
+    before a capture; B1 and B3 LayerNorm at least that (the text tower
+    adds its eager encodes)."""
+    from mdt_policy_tpu_torch.agents import MDTVPolicy
     from mdt_policy_tpu_torch.evaluation import (BatchedPolicyAdapter, FakeEnv,
                                                  ScriptedOracle, TASKS, evaluate_policy,
                                                  evaluate_policy_batched, get_sequences,
@@ -842,6 +1091,10 @@ def phase_rollout(torch, nets, device, launches: Launches, smi):
     rows = []
     for family, net in nets.items():
         cfg = net.cfg
+        before = launches.read()
+        capture = mock.patch.object(MDTVPolicy, "_capture", autospec=True,
+                                    side_effect=MDTVPolicy._capture)
+        captures = capture.start()
         goal_fn = make_goal_fn(cfg.clip_context_length)
         env = FakeEnv(img_hw=200, gripper_hw=84, seed=0)
         policy = make_rollout_policy(net, generator=torch.Generator(device).manual_seed(30))
@@ -900,6 +1153,20 @@ def phase_rollout(torch, nets, device, launches: Launches, smi):
         if not (results == want and batched["chunks_ok"]
                 and len(calls) == batched["expected_policy_calls"]):
             raise AssertionError(f"batched rollout disagrees with the oracle's rule: {batched}")
+        capture.stop()
+        after = launches.read()
+        got = {k: after[k] - before[k] for k in after}
+        runs = sum(plans) + len(calls) + MDTVPolicy.WARMUP_CALLS * captures.call_count
+        per_run = expected_replan_launches(cfg, family)[1]
+        counts = {"phase": "rollout", "family": family, "loop": "launches",
+                  "launches": got, "captures": captures.call_count,
+                  "replan_runs": runs, "per_replan_run": per_run}
+        emit(counts)
+        exact = ("small_seq_mha", "fused_rms_norm")
+        if any(got[k] != runs * per_run[k] for k in exact) or any(
+                got[k] < runs * per_run[k] for k in per_run):
+            raise AssertionError(f"{family} rollout launches disagree with its replans: "
+                                 f"{counts}")
         rows += [serial, batched]
     return launches.read(), rows
 
@@ -1029,10 +1296,11 @@ def _device_events(torch, prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
-def profile_calls(torch, fn, n: int):
+def profile_calls(torch, fn, n: int, host_top: int = 0):
     """`n` calls of `fn` under torch.profiler: wall and device ms per call,
     device events (kernels, copies, sets) per call, the device's busy share,
-    the kernels' shares of the device time, and the costliest kernels."""
+    the kernels' shares of the device time, the costliest kernels, and with
+    `host_top` that many host operators with the most self time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1048,6 +1316,7 @@ def profile_calls(torch, fn, n: int):
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     share = lambda key: sum(v for k, v in by_name.items() if key in k) / max(device_ms, 1e-9)
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:host_top]
     return {"calls": n, "wall_ms_per_call": wall_ms / n,
             "device_ms_per_call": device_ms / n,
             "device_events_per_call": len(events) / n,
@@ -1056,7 +1325,10 @@ def profile_calls(torch, fn, n: int):
             "b3_share": share("fused_norm_kernel"),
             "b4_b5_share": share("halfblock_"),
             "b2_share": share("small_seq_mha_kernel"),
-            "top_kernels_ms_per_call": [[k[:90], v / n] for k, v in top]}
+            "top_kernels_ms_per_call": [[k[:90], v / n] for k, v in top],
+            **({"host_top_self_us_per_call": [[a.key[:60], a.count / n,
+                                               a.self_cpu_time_total / n] for a in host]}
+               if host_top else {})}
 
 
 def phase_train_timing(torch, state, batch, device, smi, phase: str = "train_timing"):
@@ -1426,18 +1698,20 @@ def main() -> int:
     smi = phase_device(torch)
     phase_build()
     rows = {"b1": phase_kernel_b1(torch, device), "b3": phase_kernel_b3(torch, device),
-            "b2": phase_kernel_b2(torch, device),
+            "b2": phase_kernel_b2(torch, device) + phase_kernel_b2_edges(torch, device),
             "hb": phase_kernel_halfblocks(torch, device)}
     launches = Launches()
     rows["var"], variant_launches = phase_attn_variants(torch, device, launches, smi)
     torch.cuda.empty_cache()
     net = build_net(torch, MDTVConfig(), device)
     paths = {"replan": phase_replan(torch, net, device, launches, "mdtv")}
+    phase_graph(torch, net, device, launches, smi, "mdtv")
     phase_e2e(torch, net, device, launches, "mdtv")
     phase_timing(torch, net, device, smi, "mdtv")
     phase_b2_ab(torch, net, device, smi)
     mdt = build_net(torch, MDTConfig(), device)
     paths["mdt_replan"] = phase_replan(torch, mdt, device, launches, "mdt")
+    phase_graph(torch, mdt, device, launches, smi, "mdt")
     phase_e2e(torch, mdt, device, launches, "mdt")
     phase_timing(torch, mdt, device, smi, "mdt")
     paths["rollout"], _ = phase_rollout(torch, {"mdtv": net, "mdt": mdt}, device,
@@ -1492,8 +1766,9 @@ def summary(rows, paths):
         main = next(r for r in mine if r["shape"] == shape and r["dtype"] == dtype)
         entry = kernel_entry(name, f"mdt_policy_tpu_torch/csrc/{source}", replaces,
                              sum(p[name] for p in paths.values()), mine, main)
-        if "unfused_ms" in main:
-            entry["unfused_ms"] = main["unfused_ms"]
+        for key in ("unfused_ms", "host_us"):
+            if key in main:
+                entry[key] = main[key]
         entry["paths"] = list(own)
         for path, counts in paths.items():
             entry[f"launches_{path}"] = counts[name]
@@ -1503,5 +1778,63 @@ def summary(rows, paths):
     return {"kernels": entries}
 
 
+def replan_tree(root: str) -> int:
+    """`--replan-tree ROOT`: one tree's turn of `--replan-ab`, in this
+    process."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from mdt_policy_tpu_torch.agents import MDTVAgentNet, MDTVConfig, MDTVPolicy, init_random_
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    smi = phase_device(torch)
+    build_s = phase_build()
+    net = MDTVAgentNet(MDTVConfig(), device=device)
+    init_random_(net, torch.Generator().manual_seed(0))
+    # eager; a tree older than the graph flag has only the eager policy
+    eager = {"cuda_graph": False} \
+        if "cuda_graph" in inspect.signature(MDTVPolicy).parameters else {}
+    replan, _, _ = replanner(torch, net, 1, device, **eager)
+    times = event_times(torch, replan, REPLANS_TREE_AB)
+    emit({"phase": "replan_tree", "root": root, "replans": len(times),
+          "replan_ms_p50": float(np.percentile(times, 50)),
+          "replan_ms_p90": float(np.percentile(times, 90)),
+          "replan_ms_min": min(times), "replan_ms_max": max(times),
+          **profile_calls(torch, replan, 5, host_top=15),
+          "build_s": build_s, "torch": torch.__version__, "card": smi})
+    return 0
+
+
+def replan_ab(roots) -> int:
+    """`--replan-ab ROOT...`: `--replan-tree` of each root in its own
+    process, in the order given; each tree's line, then a summary line."""
+    rows = []
+    for root in roots:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--replan-tree", root],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            return proc.returncode
+        row = json.loads(proc.stdout.strip().splitlines()[-1])
+        emit(row)
+        rows.append(row)
+    keys = ("replan_ms_p50", "replan_ms_p90", "device_ms_per_call", "device_events_per_call")
+    emit({"summary": {root: {k: [r[k] for r in rows if r["root"] == root] for k in keys}
+                      for root in dict.fromkeys(roots)}})
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    if len(sys.argv) == 1:
+        sys.exit(main())
+    parser = argparse.ArgumentParser(description="the port's smoke run on one GPU; "
+                                     "with --replan-ab, the replan of trees in turns")
+    mode = parser.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--replan-ab", nargs="+", metavar="ROOT",
+                      help="time the MDT-V B=1 eager replan of each tree, in this order")
+    mode.add_argument("--replan-tree", metavar="ROOT", help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    sys.exit(replan_ab(args.replan_ab) if args.replan_ab else replan_tree(args.replan_tree))

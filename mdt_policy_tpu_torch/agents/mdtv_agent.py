@@ -49,6 +49,7 @@ from ..models.masked_decoder import MaskedTransformerImgDecoder
 from ..models.mdtv_transformer import MDTVTransformer
 from ..models.perceiver import PerceiverResampler
 from ..models.voltron_vit import LayerScale, VoltronViT
+from ..ops._build import count_replay, recording_launches
 from ..utils.ema import ema_decay, ema_update
 from ..utils.schedulers import lr_schedule_from_cfg
 from .config import MDTVConfig
@@ -546,21 +547,46 @@ def validation_step(net: MDTVAgentNet, batch: Mapping[str, Batch], *,
 class MDTVPolicy:
     """Closed-loop `reset() / step(obs, goal)` with action chunking: a replan
     every `multistep` env steps, the cached chunk replayed in between. The
-    CLIP text tower runs once per goal: its embedding is cached for as long
-    as the goal tokens do not change. A goal image runs the CLIP vision
-    tower at every replan, in the "vis" modality. It serves either agent
-    through the nets' uniform `perceive`, goal and `denoise_actions`
-    entries (`MDTPolicy` is the same class)."""
+    CLIP text tower runs once per goal, eagerly, as the JAX policy's
+    `_encode_lang` is its own program: its embedding is cached for as long
+    as the goal tokens do not change. A replan is `_predict_emb` (perceive,
+    then `denoise_actions` from a goal embedding) or, for a goal image,
+    `_predict_vis` (the CLIP vision tower too, in the "vis" modality), the
+    counterparts of the JAX policy's jitted `_predict_emb` and
+    `_predict_vis`. It serves either agent through the nets' uniform
+    `perceive`, goal and `denoise_actions` entries (`MDTPolicy` is the same
+    class).
+
+    `cuda_graph` (default: whether the net is on a CUDA device) runs each
+    replan as the replay of a `torch.cuda.CUDAGraph`, captured on first use
+    for each (method, input shapes): the port's counterpart of `jax.jit`.
+    The inputs are copied into the graph's static buffers; the initial
+    noise is drawn from `generator` outside the graph and passed in, so a
+    graph policy and an eager one give the same chunk from the same seed.
+    A graph reads the net's parameters where they were at capture: load
+    new weights into them in place (`load_state_dict`), or make a new
+    policy. A capture that fails raises. The kernels' launch counters count
+    a captured kernel at each replay, where it runs, and not at the capture,
+    which runs none."""
 
     def __init__(self, net: nn.Module,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 cuda_graph: Optional[bool] = None):
         self.net, self.cfg = net, net.cfg
         if self.cfg.multistep > self.cfg.act_window_size:
             raise ValueError(f"multistep={self.cfg.multistep} exceeds "
                              f"act_window_size={self.cfg.act_window_size}")
         self.device = net.device
+        on_cuda = self.device.type == "cuda"
+        self.cuda_graph = on_cuda if cuda_graph is None else cuda_graph
+        if self.cuda_graph and not on_cuda:
+            raise ValueError(f"cuda_graph=True needs a net on a CUDA device, "
+                             f"not {self.device}")
         self.generator = generator if generator is not None \
             else torch.Generator(self.device).manual_seed(0)
+        # (method name, input shapes and dtypes) ->
+        # (graph, inputs, output, kernel launches a replay)
+        self._graphs: Dict[Tuple, Tuple] = {}
         self.reset()
 
     def reset(self):
@@ -572,12 +598,65 @@ class MDTVPolicy:
     def _tensor(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device, dtype=dtype)
 
+    def _draw_noise(self, batch: int) -> torch.Tensor:
+        """The replan's initial N(0, 1) draw, (batch, act_window_size,
+        action_dim), from `generator`, outside any graph."""
+        return torch.randn((batch, self.cfg.act_window_size, self.cfg.action_dim),
+                           generator=self.generator, device=self.device)
+
+    def _predict_emb(self, rgb_static, rgb_gripper, latent_goal, noise):
+        """Replan from a goal embedding (JAX `_predict_emb_impl`): a stored
+        language embedding or this policy's cached text-tower output."""
+        emb = self.net.perceive(rgb_static, rgb_gripper)
+        return denoise_actions(self.net, emb, latent_goal, noise=noise, modality="lang")
+
+    def _predict_vis(self, rgb_static, rgb_gripper, goal_image, noise):
+        """Replan from a goal image (JAX `_predict_vis_impl`): the frozen
+        CLIP vision tower embeds it, in the "vis" modality."""
+        emb = self.net.perceive(rgb_static, rgb_gripper)
+        latent_goal = self.net.encode_visual_goal(goal_image)
+        return denoise_actions(self.net, emb, latent_goal, noise=noise, modality="vis")
+
+    WARMUP_CALLS = 2  # eager calls on a side stream before a capture
+
+    def _capture(self, predict, inputs):
+        """(graph, static inputs, static output, kernel launches a replay)
+        of `predict`, after WARMUP_CALLS eager calls on a side stream
+        (kernel libraries loaded, library handles and workspaces made)."""
+        static = [t.clone() for t in inputs]
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(self.WARMUP_CALLS):
+                predict(*static)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with recording_launches() as launched, torch.cuda.graph(graph):
+            out = predict(*static)
+        return graph, static, out, launched
+
+    def _run(self, predict, *inputs) -> torch.Tensor:
+        """`predict(*inputs)`, eagerly or as the replay of its graph."""
+        if not self.cuda_graph:
+            return predict(*inputs)
+        key = (predict.__name__, tuple((tuple(t.shape), t.dtype) for t in inputs))
+        if key not in self._graphs:
+            self._graphs[key] = self._capture(predict, inputs)
+        graph, static, out, launched = self._graphs[key]
+        for buf, t in zip(static, inputs):
+            buf.copy_(t)
+        graph.replay()
+        count_replay(launched)
+        return out.clone()  # the next replay overwrites `out`
+
     @torch.no_grad()
     def plan(self, obs: Dict, goal: Dict) -> torch.Tensor:
         """One replan: the (B, act_window_size, action_dim) chunk for `obs`
         and `goal` (as `step` takes them), the text goal's embedding cached
         across calls for as long as its tokens do not change."""
-        modality = "lang"
+        rgb_static = self._tensor(obs["rgb_static"], torch.float32)
+        rgb_gripper = self._tensor(obs["rgb_gripper"], torch.float32)
+        noise = self._draw_noise(rgb_static.shape[0])
         if "lang_tokens" in goal:
             toks = goal["lang_tokens"]
             toks = toks.cpu().numpy() if torch.is_tensor(toks) else np.asarray(toks)
@@ -587,14 +666,11 @@ class MDTVPolicy:
             goal_emb = self._goal_emb
         elif "rgb_static_goal" in goal:
             image = self._tensor(goal["rgb_static_goal"], torch.float32)
-            goal_emb = self.net.encode_visual_goal(image[None] if image.ndim == 3 else image)
-            modality = "vis"
+            return self._run(self._predict_vis, rgb_static, rgb_gripper,
+                             image[None] if image.ndim == 3 else image, noise)
         else:
             goal_emb = torch.atleast_2d(self._tensor(goal["lang"], torch.float32))
-        emb = self.net.perceive(self._tensor(obs["rgb_static"], torch.float32),
-                                self._tensor(obs["rgb_gripper"], torch.float32))
-        return denoise_actions(self.net, emb, goal_emb, generator=self.generator,
-                               modality=modality)
+        return self._run(self._predict_emb, rgb_static, rgb_gripper, goal_emb, noise)
 
     @torch.no_grad()
     def step(self, obs: Dict, goal: Dict) -> torch.Tensor:

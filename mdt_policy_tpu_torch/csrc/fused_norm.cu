@@ -25,11 +25,14 @@
 // and does ~5 flops per element, far below the ~295 flop/byte ridge, so its
 // floor is the traffic over 3.35 TB/s (23 us for 50,176 rows of 384 in bf16).
 // The design's answer is the single read and single write of each row; no
-// shared memory, no second pass.
+// shared memory, no second pass. At the replans' few hundred rows the
+// kernel takes ~2 us and a call's cost is the host's launch: the wrapper
+// keeps it light, and inside the replan's CUDA graph it costs nothing.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cmath>
+#include <cstdint>
 
 namespace {
 
@@ -174,10 +177,16 @@ int launch_typed(const void* x, const void* w, const void* b, void* out, long lo
   return static_cast<int>(cudaGetLastError());
 }
 
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 template <bool kRms>
 int launch(const void* x, const void* w, const void* b, void* out, long long rows, int D,
            float eps, int is_bf16, void* stream) {
   if (rows <= 0) return 0;
+  // the grid's x limit, and the 16-byte vector accesses
+  if ((rows + kWarps - 1) / kWarps >= (1LL << 31) || !aligned16(x) || !aligned16(w) ||
+      (!kRms && !aligned16(b)) || !aligned16(out))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_typed<__nv_bfloat16, kRms>(x, w, b, out, rows, D, eps, s)
                  : launch_typed<float, kRms>(x, w, b, out, rows, D, eps, s);
@@ -192,7 +201,9 @@ int mdt_fused_norm_max_width(int is_bf16) {
   return 32 * kVplMax * (is_bf16 ? vec_elems<__nv_bfloat16>() : vec_elems<float>());
 }
 
-// Launch on `stream`; return cudaGetLastError() (0 on success).
+// Launch on `stream`; return cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for more rows than the grid holds or a pointer that
+// is not 16-byte aligned.
 int mdt_fused_layer_norm(const void* x, const void* w, const void* b, void* out,
                          long long rows, int D, float eps, int is_bf16, void* stream) {
   return launch<false>(x, w, b, out, rows, D, eps, is_bf16, stream);

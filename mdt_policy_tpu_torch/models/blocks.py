@@ -348,14 +348,15 @@ class SinusoidalPosEmb(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
         self.dim = dim
+        # float32 throughout, as the JAX version computes it: the f32 value of
+        # log(1e4) / (dim // 2 - 1), held exactly by a Python float, so that
+        # a call copies no host tensor to the device (a CUDA graph captures it)
+        self.emb_scale = (torch.tensor(math.log(10000.0), dtype=torch.float32)
+                          / (dim // 2 - 1)).item()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        half_dim = self.dim // 2
-        # float32 throughout, as the JAX version computes it
-        emb_scale = torch.tensor(math.log(10000.0), dtype=torch.float32) \
-            / (half_dim - 1)
-        freqs = torch.exp(torch.arange(half_dim, dtype=torch.float32,
-                                       device=x.device) * -emb_scale.to(x.device))
+        freqs = torch.exp(torch.arange(self.dim // 2, dtype=torch.float32,
+                                       device=x.device) * -self.emb_scale)
         emb = x[..., None] * freqs
         return torch.cat([emb.sin(), emb.cos()], dim=-1)
 

@@ -9,11 +9,16 @@ library with a plain C interface:
 The output lands in `build/kernels/` beside the package (ignored by git),
 keyed by a hash of the source, every shared header `csrc/*.cuh` and the
 flags, so an edited source or header rebuilds and an unchanged one is
-reused. Nothing here runs at import time.
+reused. Nothing here runs at import time. `current_stream` gives a launch
+its stream; `count_launch`, `recording_launches` and `count_replay` keep
+each wrapper's `.launches`, the kernel launches that actually ran, true
+across CUDA graphs.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -22,6 +27,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -70,3 +77,48 @@ def load_library(name: str) -> ctypes.CDLL:
             if os.path.exists(tmp):
                 os.unlink(tmp)
     return ctypes.CDLL(str(out))
+
+
+def current_stream(t: torch.Tensor) -> int:
+    """The raw `cudaStream_t` of the current stream (under graph capture,
+    the capturing one) for a launch on CUDA tensor `t`. Raises unless `t`
+    lies on the current device: the kernels launch there."""
+    dev = t.get_device()
+    if dev != torch.cuda.current_device():
+        raise ValueError(f"a tensor on cuda:{dev} while cuda:{torch.cuda.current_device()} "
+                         f"is the current device; launch under torch.cuda.device({dev})")
+    return torch._C._cuda_getCurrentRawStream(dev)
+
+
+# While a graph is captured under `recording_launches`: wrapper -> launches
+# recorded into it (a capture runs no kernel)
+_recording = None
+
+
+def count_launch(wrapper) -> None:
+    """One launch of `wrapper`'s kernel, counted in `wrapper.launches`; while
+    a CUDA graph is captured under `recording_launches`, recorded for the
+    graph's replays instead."""
+    if _recording is None:
+        wrapper.launches += 1
+    else:
+        _recording[wrapper] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Around a graph's capture: yields a Counter {wrapper: launches in the
+    graph}, for `count_replay` after each replay of that graph."""
+    global _recording
+    outer, _recording = _recording, collections.Counter()
+    try:
+        yield _recording
+    finally:
+        _recording = outer
+
+
+def count_replay(recorded) -> None:
+    """Counts the launches of one replay of a graph whose capture
+    `recording_launches` recorded as `recorded`."""
+    for wrapper, n in recorded.items():
+        wrapper.launches += n

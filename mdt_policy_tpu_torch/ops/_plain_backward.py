@@ -29,3 +29,13 @@ class PlainBackward(torch.autograd.Function):
         grads = iter(torch.autograd.grad(y, wanted, grad) if wanted else ())
         return (None, None, None, *(next(grads) if t is not None and t.requires_grad
                                     else None for t in inputs))
+
+
+def launch_with_plain_backward(launch, reference, kwargs, *tensors):
+    """`launch(*tensors, **kwargs)`, through `PlainBackward` only where
+    autograd records the call (grad mode on and an input that requires a
+    gradient): a call under `no_grad`, or on frozen inputs, pays for no
+    autograd Function."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        return PlainBackward.apply(launch, reference, kwargs, *tensors)
+    return launch(*tensors, **kwargs)

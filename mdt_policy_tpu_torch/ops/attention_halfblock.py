@@ -174,7 +174,7 @@ def _launch(x, g, b, w_qkv, b_qkv, w_proj, b_proj, gamma, *, n_heads: int,
     if rc != 0:
         raise RuntimeError(f"attention_halfblock: CUDA launch failed with error {rc} "
                            f"for x {tuple(x.shape)}, n_heads={n_heads}, norm={norm}")
-    attention_halfblock.launches += 1
+    _build.count_launch(attention_halfblock)
     return out
 
 

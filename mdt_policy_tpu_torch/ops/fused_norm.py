@@ -15,7 +15,9 @@ On a CUDA tensor the wrapper launches the hand-written kernel in
 `csrc/fused_norm.cu` (built with nvcc at first use, see `_build.py`) or
 raises; on a CPU tensor it runs the plain PyTorch version of the same math.
 The backward, like the TPU kernels' custom VJPs, differentiates the plain
-version; the foresight decoder trains through it.
+version; the foresight decoder trains through it. A call that autograd does
+not record (under `no_grad`, or on inputs that need no gradient) launches
+the kernel directly, with no autograd Function around it.
 """
 
 from __future__ import annotations
@@ -27,10 +29,13 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._plain_backward import PlainBackward
+from ._plain_backward import launch_with_plain_backward
 
 __all__ = ["fused_layer_norm", "fused_layer_norm_reference", "fused_rms_norm",
            "fused_rms_norm_reference"]
+
+
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _stat_dtype(x: torch.Tensor) -> torch.dtype:
@@ -58,74 +63,69 @@ def fused_rms_norm_reference(x: torch.Tensor, g: torch.Tensor,
 
 
 def _check(name: str, x: torch.Tensor, *weights: torch.Tensor) -> None:
-    if x.device.type not in ("cpu", "cuda"):
+    if not (x.is_cuda or x.is_cpu):
         raise ValueError(f"{name}: unsupported device {x.device}")
-    D = x.shape[-1] if x.ndim else 0
-    for t in (x, *weights):
-        if t.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"{name}: dtype {t.dtype} is not float32 or bfloat16")
-        if t.device != x.device:
-            raise ValueError(f"{name}: weights on {t.device}, input on {x.device}")
-    if x.ndim == 0 or D % 8:
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype {x.dtype} is not float32 or bfloat16")
+    if x.ndim == 0 or x.shape[-1] % 8:
         raise ValueError(f"{name}: the row width must be a multiple of 8, "
                          f"got shape {tuple(x.shape)}")
+    D, dtype, device = x.shape[-1], x.dtype, x.device
     for t in weights:
-        if t.shape != (D,):
+        if t.dtype is not dtype:
+            raise TypeError(f"{name}: weights in {[t.dtype for t in weights]}, input "
+                            f"in {x.dtype}; cast the weights to the input's dtype")
+        if t.device != device:
+            raise ValueError(f"{name}: weights on {t.device}, input on {x.device}")
+        if t.ndim != 1 or t.shape[0] != D:
             raise ValueError(f"{name}: weight shape {tuple(t.shape)}, expected ({D},)")
-    if any(t.dtype != x.dtype for t in weights):
-        raise TypeError(f"{name}: weights in {[t.dtype for t in weights]}, input "
-                        f"in {x.dtype}; cast the weights to the input's dtype")
-    if not (x.is_contiguous() and all(t.is_contiguous() for t in weights)):
-        raise ValueError(f"{name}: input and weights must be contiguous")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: weights must be contiguous")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: the input must be contiguous")
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
+def _kernels():
+    """The ctypes functions of `csrc/fused_norm.cu` (LayerNorm, RMSNorm) and
+    the widest row each input dtype takes, built, loaded and typed once per
+    process."""
     lib = _build.load_library("fused_norm")
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mdt_fused_layer_norm.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_longlong,
-                                         i, f, i, ptr]
-    lib.mdt_fused_layer_norm.restype = ctypes.c_int
-    lib.mdt_fused_rms_norm.argtypes = [ptr, ptr, ptr, ctypes.c_longlong, i, f,
-                                       i, ptr]
-    lib.mdt_fused_rms_norm.restype = ctypes.c_int
+    layer_norm, rms_norm = lib.mdt_fused_layer_norm, lib.mdt_fused_rms_norm
+    layer_norm.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_longlong, i, f, i, ptr]
+    rms_norm.argtypes = [ptr, ptr, ptr, ctypes.c_longlong, i, f, i, ptr]
+    layer_norm.restype = rms_norm.restype = ctypes.c_int
     lib.mdt_fused_norm_max_width.argtypes = [i]
-    lib.mdt_fused_norm_max_width.restype = ctypes.c_int
-    return lib
+    lib.mdt_fused_norm_max_width.restype = i
+    max_width = {dt: lib.mdt_fused_norm_max_width(int(dt == torch.bfloat16))
+                 for dt in (torch.float32, torch.bfloat16)}
+    return layer_norm, rms_norm, max_width
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
             eps: float) -> torch.Tensor:
     """One kernel launch: LayerNorm when `b` is given, else RMSNorm."""
+    layer_norm, rms_norm, max_width = _kernels()
     name = "fused_layer_norm" if b is not None else "fused_rms_norm"
     D = x.shape[-1]
-    rows = x.numel() // D
-    lib = _library()
-    max_d = lib.mdt_fused_norm_max_width(int(x.dtype == torch.bfloat16))
-    if D > max_d:
-        raise ValueError(f"{name}: row width {D} over the kernel's {max_d}")
-    if (rows + 7) // 8 >= 2 ** 31:
-        raise ValueError(f"{name}: {rows} rows exceed the grid")
-    tensors = (x, w) if b is None else (x, w, b)
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name}: input and weights must be 16-byte aligned")
+    if D > max_width[x.dtype]:
+        raise ValueError(f"{name}: row width {D} over the kernel's {max_width[x.dtype]}")
     out = torch.empty_like(x)
+    rows, is_bf16, stream = x.numel() // D, x.dtype is torch.bfloat16, _build.current_stream(x)
     if rows == 0:
         return out
-    is_bf16 = int(x.dtype == torch.bfloat16)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if b is None:
-            rc = lib.mdt_fused_rms_norm(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                        rows, D, eps, is_bf16, stream)
-        else:
-            rc = lib.mdt_fused_layer_norm(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                                          out.data_ptr(), rows, D, eps, is_bf16,
-                                          stream)
+    if b is None:
+        rc = rms_norm(x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, D, eps, is_bf16,
+                      stream)
+    else:
+        rc = layer_norm(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), rows, D,
+                        eps, is_bf16, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc} for x "
-                           f"{tuple(x.shape)} {x.dtype}")
-    (fused_rms_norm if b is None else fused_layer_norm).launches += 1
+                           f"{tuple(x.shape)} {x.dtype} (error 1: more rows than the "
+                           "grid holds, or an input or weight not 16-byte aligned)")
+    _build.count_launch(fused_rms_norm if b is None else fused_layer_norm)
     return out
 
 
@@ -141,9 +141,9 @@ def fused_layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     x; output in the dtype of x. CUDA tensors run the kernel (one launch, counted in
     `fused_layer_norm.launches`); CPU tensors run the plain version."""
     _check("fused_layer_norm", x, w, b)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return fused_layer_norm_reference(x, w, b, eps)
-    return PlainBackward.apply(_launch, _reference, {"eps": eps}, x, w, b)
+    return launch_with_plain_backward(_launch, _reference, {"eps": eps}, x, w, b)
 
 
 def fused_rms_norm(x: torch.Tensor, g: torch.Tensor,
@@ -152,9 +152,9 @@ def fused_rms_norm(x: torch.Tensor, g: torch.Tensor,
     g (D,) in the dtype of x; output in the dtype of x. CUDA tensors run the kernel (counted in
     `fused_rms_norm.launches`); CPU tensors run the plain version."""
     _check("fused_rms_norm", x, g)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return fused_rms_norm_reference(x, g, eps)
-    return PlainBackward.apply(_launch, _reference, {"eps": eps}, x, g, None)
+    return launch_with_plain_backward(_launch, _reference, {"eps": eps}, x, g, None)
 
 
 fused_layer_norm.launches = 0

@@ -133,7 +133,7 @@ def _launch(qkv: torch.Tensor, n_heads: int, causal: bool) -> torch.Tensor:
         raise RuntimeError(f"fused_qkv_attention: CUDA launch failed with "
                            f"error {rc} for qkv {tuple(qkv.shape)} "
                            f"{qkv.dtype}, n_heads={n_heads}")
-    fused_qkv_attention.launches += 1
+    _build.count_launch(fused_qkv_attention)
     return out
 
 

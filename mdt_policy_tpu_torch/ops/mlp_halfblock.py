@@ -81,7 +81,7 @@ def _launch(x, g, b, w1, b1, w2, b2, gamma, *, act: str, norm: str,
     if rc != 0:
         raise RuntimeError(f"mlp_halfblock: CUDA launch failed with error {rc} for x "
                            f"{tuple(x.shape)}, hidden={H}, act={act}, norm={norm}")
-    mlp_halfblock.launches += 1
+    _build.count_launch(mlp_halfblock)
     return out
 
 

@@ -168,7 +168,7 @@ def pair_grid_attention(qkv: torch.Tensor, n_heads: int, block_b: int = 16) -> t
     if qkv.device.type == "cpu":
         return pair_attention_reference(qkv, n_heads)
     out = _launch("attn_pair_grid", qkv, block_b, (), None)
-    pair_grid_attention.launches += 1
+    _build.count_launch(pair_grid_attention)
     return out
 
 
@@ -193,7 +193,7 @@ def pair_attention(qkv: torch.Tensor, n_heads: int, block_b: int = 16, *,
     flags = (_EXP2 * exp2) | (_MXU_SUM * mxu_sum) | (_NO_MAX * no_max) \
         | (_BF16_SOFTMAX * bf16_softmax)
     out = _launch("attn_pair_v3", qkv, block_b, (flags,), vmem_mb)
-    pair_attention.launches += 1
+    _build.count_launch(pair_attention)
     return out
 
 

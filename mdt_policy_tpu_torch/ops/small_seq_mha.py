@@ -16,23 +16,27 @@ version of the same math. The kernel takes any strides, so the transposed
 views of `models/blocks.py::Attention` go in without a copy, and writes its
 output in (B, T, H, D) memory order: the returned (B, H, T, D) tensor is a
 transposed view of it, and the head merge that follows costs nothing. The
-backward, like the TPU kernel's custom VJP, differentiates the plain version.
+backward, like the TPU kernel's custom VJP, differentiates the plain version;
+a call that autograd does not record (under `no_grad`, as in the replan)
+launches the kernel directly, with no autograd Function around it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import struct
 
 import torch
 
 from . import _build
-from ._plain_backward import PlainBackward
+from ._plain_backward import launch_with_plain_backward
 
 __all__ = ["MAX_SEQ", "MAX_DIM", "small_seq_mha", "small_seq_mha_reference"]
 
 MAX_SEQ = 32   # one lane per key in the kernel's warp
 MAX_DIM = 128  # four 32-channel chunks per lane
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def small_seq_mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -52,50 +56,54 @@ def small_seq_mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.device.type not in ("cpu", "cuda") or not q.device == k.device == v.device:
+    device, dtype, shape = q.device, q.dtype, q.shape
+    if not (q.is_cuda or q.is_cpu) or k.device != device or v.device != device:
         raise ValueError(f"small_seq_mha: q, k, v on {q.device}, {k.device}, "
                          f"{v.device}: one CPU or CUDA device expected")
-    if q.dtype not in (torch.float32, torch.bfloat16) or not q.dtype == k.dtype == v.dtype:
+    if dtype not in _DTYPES or k.dtype is not dtype or v.dtype is not dtype:
         raise TypeError(f"small_seq_mha: dtypes {q.dtype}, {k.dtype}, {v.dtype}; "
                         "float32 or bfloat16, all three the same")
-    if q.ndim != 4 or not q.shape == k.shape == v.shape:
+    if len(shape) != 4 or k.shape != shape or v.shape != shape:
         raise ValueError(f"small_seq_mha: q, k, v must be (B, H, T, D) of one shape "
                          f"(self-attention), got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    B, H, T, D = q.shape
+    B, H, T, D = shape
     if not (1 <= T <= MAX_SEQ and 1 <= D <= MAX_DIM and B * H >= 1):
         raise ValueError(f"small_seq_mha: T={T}, D={D}; the kernel takes "
                          f"1 <= T <= {MAX_SEQ}, 1 <= D <= {MAX_DIM} and B*H >= 1")
 
 
+# the kernel's int64 parameters: B, H, T, D, the strides of q, k, v, causal,
+# is_bf16, passed as one buffer (a ctypes call costs per argument)
+_PARAMS = struct.Struct("18q")
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.load_library("small_seq_mha")
-    lib.mdt_small_seq_mha.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
-    lib.mdt_small_seq_mha.restype = ctypes.c_int
-    return lib
+def _kernel():
+    """The ctypes function of `csrc/small_seq_mha.cu`, built, loaded and
+    typed once per process."""
+    fn = _build.load_library("small_seq_mha").mdt_small_seq_mha
+    ptr = ctypes.c_void_p
+    fn.argtypes = [ptr] * 4 + [ctypes.c_char_p, ctypes.c_float, ptr]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool) -> torch.Tensor:
     B, H, T, D = q.shape
-    lib = _library()
-    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 12)(*q.stride(), *k.stride(), *v.stride())
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.mdt_small_seq_mha(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                   out.data_ptr(), B, H, T, D, strides, D ** -0.5,
-                                   int(causal), int(q.dtype == torch.bfloat16), stream)
+    # (B, H, T, D) in (B, T, H, D) memory order, the kernel's output layout
+    out = torch.empty_strided((B, H, T, D), (T * H * D, D, H * D, 1), dtype=q.dtype,
+                              device=q.device)
+    params = _PARAMS.pack(B, H, T, D, *q.stride(), *k.stride(), *v.stride(), causal,
+                          q.dtype is torch.bfloat16)
+    rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), params,
+                   D ** -0.5, _build.current_stream(q))
     if rc != 0:
         raise RuntimeError(f"small_seq_mha: CUDA launch failed with error {rc} "
                            f"for q {tuple(q.shape)} {q.dtype}, causal={causal}")
-    small_seq_mha.launches += 1
-    return out.transpose(1, 2)
+    _build.count_launch(small_seq_mha)
+    return out
 
 
 def small_seq_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -103,12 +111,13 @@ def small_seq_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Self-attention over (B, H, T, D) -> (B, H, T, D), T <= 32, D <= 128.
 
     CUDA tensors run the kernel (and count one launch in
-    `small_seq_mha.launches`); CPU tensors run the plain version."""
+    `small_seq_mha.launches`), through `PlainBackward` only where autograd
+    wants a gradient; CPU tensors run the plain version."""
     _check(q, k, v)
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return small_seq_mha_reference(q, k, v, causal)
-    return PlainBackward.apply(_launch, small_seq_mha_reference,
-                               {"causal": causal}, q, k, v)
+    return launch_with_plain_backward(_launch, small_seq_mha_reference,
+                                      {"causal": causal}, q, k, v)
 
 
 small_seq_mha.launches = 0

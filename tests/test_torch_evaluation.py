@@ -235,9 +235,7 @@ def test_rollout_policy_gives_the_jax_chunk(family):
     jaction = jpolicy.step(obs, goal)
     noise = _first_noise(5, 1)
     policy = make_rollout_policy(port)
-    real = port_agent.denoise_actions
-    with mock.patch.object(port_agent, "denoise_actions",
-                           lambda *a, generator, **kw: real(*a, noise=noise, **kw)):
+    with mock.patch.object(port_agent.MDTVPolicy, "_draw_noise", lambda self, batch: noise):
         action = policy.step(obs, goal)
     assert action.shape == (1, 7) and isinstance(action, np.ndarray)
     np.testing.assert_allclose(policy.inner.pred_action_seq.numpy(),
@@ -256,15 +254,13 @@ def test_batched_predict_is_the_serial_policys_replan(family):
     goals = [goal_fn(t) for t in ("open_drawer", "push_into_drawer", "open_drawer")]
     noise = torch.from_numpy(np.random.default_rng(0).normal(size=(3, 10, 7))
                              .astype(np.float32))
-    real = port_agent.denoise_actions
-    with mock.patch.object(port_agent, "denoise_actions",
-                           lambda *a, generator, **kw: real(*a, noise=noise, **kw)):
+    with mock.patch.object(port_agent.MDTVPolicy, "_draw_noise", lambda self, batch: noise):
         chunks = make_batched_predict(port)(batched_rollout._stack_obs(obs), goals)
     assert chunks.shape == (3, 10, 7)
     for i in range(3):
         policy = make_rollout_policy(port)
-        with mock.patch.object(port_agent, "denoise_actions",
-                               lambda *a, generator, **kw: real(*a, noise=noise[i:i + 1], **kw)):
+        with mock.patch.object(port_agent.MDTVPolicy, "_draw_noise",
+                               lambda self, batch: noise[i:i + 1]):
             policy.step(obs[i], goals[i])
         np.testing.assert_allclose(chunks[i], policy.inner.pred_action_seq[0].numpy(),
                                    rtol=1e-4, atol=1e-5)

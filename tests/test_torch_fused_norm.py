@@ -9,12 +9,14 @@ that on a GPU machine without JAX the `cuda` tests of this file run alone:
     python -m pytest tests/test_torch_fused_norm.py -m cuda --noconftest
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
 
 from mdt_policy_tpu_torch.ops import fused_norm as fn
-from mdt_policy_tpu_torch.ops._plain_backward import PlainBackward
+from mdt_policy_tpu_torch.ops._plain_backward import PlainBackward, launch_with_plain_backward
 from mdt_policy_tpu_torch.ops.fused_norm import (
     fused_layer_norm, fused_layer_norm_reference, fused_rms_norm,
     fused_rms_norm_reference)
@@ -155,6 +157,40 @@ def test_autograd_function_backward_is_plain_backward(weights_grad):
                 torch.testing.assert_close(a.grad, r.grad, rtol=1e-4, atol=1e-6)
 
 
+@pytest.mark.parametrize("kind", ["ln", "rms"])
+@pytest.mark.parametrize("mode", ["no_grad", "frozen_inputs", "grad"])
+def test_dispatch_enters_autograd_function_only_for_gradients(kind, mode):
+    """The CUDA branch's dispatch, its launch stood in for by the plain
+    version (the kernel has no CPU mode): under no_grad, or on inputs that
+    need no gradient, the launch runs directly, with no autograd Function
+    and no graph; where autograd wants a gradient (here the input's, the
+    weights frozen as in the towers) it runs through PlainBackward, whose
+    gradient is the plain version's."""
+    x, w, b = (torch.from_numpy(a) for a in _arrays((4, 5, 16), 5))
+    x.requires_grad_(mode != "frozen_inputs")
+    tensors = (x, w, b) if kind == "ln" else (x, w, None)
+    eps = 1e-5 if kind == "ln" else 1e-8
+    launched = []
+
+    def launch(*args, eps):
+        launched.append(eps)
+        return fn._reference(*args, eps)
+    with mock.patch.object(fn, "_launch", launch), \
+            mock.patch.object(PlainBackward, "apply", wraps=PlainBackward.apply) as applied, \
+            torch.set_grad_enabled(mode != "no_grad"):
+        out = launch_with_plain_backward(fn._launch, fn._reference, {"eps": eps}, *tensors)
+    assert launched == [eps]
+    assert applied.call_count == (mode == "grad")
+    assert (out.grad_fn is not None) == (mode == "grad")
+    if mode == "grad":
+        up = torch.from_numpy(_arrays((4, 5, 16), 6)[0])
+        (grad,) = torch.autograd.grad((out * up).sum(), x)
+        ref_x = x.detach().clone().requires_grad_()
+        (ref,) = torch.autograd.grad((fn._reference(ref_x, *tensors[1:], eps) * up).sum(),
+                                     ref_x)
+        torch.testing.assert_close(grad, ref, rtol=0, atol=0)
+
+
 def test_plain_versions_pass_gradcheck():
     rng = np.random.default_rng(4)
     x, w, b = (torch.from_numpy(rng.normal(size=s)).requires_grad_()
@@ -224,6 +260,22 @@ def test_cuda_kernel_matches_float64_norm(kind):
         ref = torch.nn.functional.layer_norm(xd, (384,), wd, bd, 1e-5)
     torch.cuda.synchronize()
     assert (out.double() - ref).abs().max().item() <= 1e-5 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ln", "rms"])
+def test_cuda_light_launch_records_no_autograd_graph(kind):
+    """Under no_grad, and on inputs that need no gradient, the kernel's
+    output carries no grad_fn; with an input that needs one,
+    PlainBackward's."""
+    x, w, b = _cuda_inputs(392, 384, torch.bfloat16, 4)
+    call = (lambda x: fused_layer_norm(x, w, b)) if kind == "ln" \
+        else (lambda x: fused_rms_norm(x, w))
+    assert call(x).grad_fn is None
+    x.requires_grad_()
+    with torch.no_grad():
+        assert call(x).grad_fn is None
+    assert call(x).grad_fn is not None
 
 
 @pytest.mark.cuda

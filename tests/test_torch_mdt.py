@@ -28,7 +28,6 @@ from mdt_policy_tpu.models.resnet import ResNet18GN as JResNet
 from mdt_policy_tpu.models.resnet import SpatialSoftmax as JSpatialSoftmax
 from mdt_policy_tpu_torch.agents import (MDTAgentNet, MDTConfig, MDTPolicy,
                                          MDTVPolicy, denoise_actions)
-from mdt_policy_tpu_torch.agents import mdtv_agent as port_agent
 from mdt_policy_tpu_torch.models.mdt_transformer import MDTTransformer
 from mdt_policy_tpu_torch.models.resnet import (BesoResNetEncoder, ResNet18GN,
                                                 SpatialSoftmax)
@@ -263,11 +262,8 @@ def test_mdt_policy_matches_jax_over_replans(goal_kind):
     jpolicy = JaxPolicy(net, params, rng=jax.random.PRNGKey(11))
     jactions = [np.asarray(jpolicy.step(obs, goal)) for _ in range(21)]
     noises = iter(_jax_noises(11, 3))
-
-    def with_noise(*args, generator, **kw):
-        return denoise_actions(*args, noise=next(noises), **kw)
     policy = MDTPolicy(port, generator=torch.Generator().manual_seed(0))
-    with mock.patch.object(port_agent, "denoise_actions", with_noise), \
+    with mock.patch.object(policy, "_draw_noise", lambda batch: next(noises)), \
             mock.patch.object(port, "encode_language_goal",
                               wraps=port.encode_language_goal) as encode:
         actions = [policy.step(obs, goal).numpy() for _ in range(21)]

@@ -21,7 +21,6 @@ from mdt_policy_tpu.agents.mdtv_agent import MDTVPolicy as JaxPolicy
 from mdt_policy_tpu.agents.mdtv_agent import denoise_actions as jax_denoise
 from mdt_policy_tpu_torch.agents import (MDTVAgentNet, MDTVConfig, MDTVPolicy,
                                          denoise_actions)
-from mdt_policy_tpu_torch.agents import mdtv_agent as port_agent
 from mdt_policy_tpu_torch.utils.from_jax import from_jax
 
 # TINY_OVERRIDES of tests/test_training_cli.py, with the production DDIM-10
@@ -188,11 +187,8 @@ def test_policy_vis_goal_replan_matches_jax():
     _, k = jax.random.split(jax.random.PRNGKey(11))
     k_init, _ = jax.random.split(k)
     noise = torch.from_numpy(np.array(jax.random.normal(k_init, (B, 10, 7))))
-
-    def with_noise(*args, generator, **kw):
-        return denoise_actions(*args, noise=noise, **kw)
     policy = MDTVPolicy(port, generator=torch.Generator().manual_seed(0))
-    with mock.patch.object(port_agent, "denoise_actions", with_noise), \
+    with mock.patch.object(policy, "_draw_noise", lambda batch: noise), \
             mock.patch.object(port, "encode_visual_goal",
                               wraps=port.encode_visual_goal) as encode_image:
         pa = policy.step(obs, goal)

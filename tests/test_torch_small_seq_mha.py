@@ -17,6 +17,8 @@ import pytest
 import torch
 
 from mdt_policy_tpu_torch.models import blocks
+from mdt_policy_tpu_torch.ops import small_seq_mha as ssm
+from mdt_policy_tpu_torch.ops._plain_backward import PlainBackward, launch_with_plain_backward
 from mdt_policy_tpu_torch.ops.small_seq_mha import small_seq_mha, small_seq_mha_reference
 
 # the four shapes of tests/test_pallas_attention.py, MDT's encoder and causal
@@ -105,6 +107,37 @@ def test_wrapper_rejects_bad_input(shapes, dtype, error):
         small_seq_mha(*(torch.zeros(s, dtype=dtype) for s in shapes))
 
 
+@pytest.mark.parametrize("mode", ["no_grad", "frozen_inputs", "grad"])
+def test_dispatch_enters_autograd_function_only_for_gradients(mode):
+    """The CUDA branch's dispatch, its launch stood in for by the plain
+    version (the kernel has no CPU mode): under no_grad, or on inputs that
+    need no gradient, the launch runs directly, with no autograd Function
+    and no graph; where autograd wants a gradient it runs through
+    PlainBackward, whose gradient is the plain version's."""
+    arrays = _qkv((2, 8, 10, 48), seed=3)
+    leaves = [torch.from_numpy(a).requires_grad_(mode != "frozen_inputs") for a in arrays]
+    launched = []
+
+    def launch(q, k, v, causal):
+        launched.append(causal)
+        return small_seq_mha_reference(q, k, v, causal)
+    with mock.patch.object(ssm, "_launch", launch), \
+            mock.patch.object(PlainBackward, "apply", wraps=PlainBackward.apply) as applied, \
+            torch.set_grad_enabled(mode != "no_grad"):
+        out = launch_with_plain_backward(ssm._launch, small_seq_mha_reference,
+                                         {"causal": True}, *leaves)
+    assert launched == [True]
+    assert applied.call_count == (mode == "grad")
+    assert (out.grad_fn is not None) == (mode == "grad")
+    if mode == "grad":
+        w = torch.from_numpy(_qkv((2, 8, 10, 48), seed=4)[0])
+        grads = torch.autograd.grad((out * w).sum(), leaves)
+        refs = [t.detach().clone().requires_grad_() for t in leaves]
+        ref_grads = torch.autograd.grad((small_seq_mha_reference(*refs, True) * w).sum(), refs)
+        for mine, ref in zip(grads, ref_grads):
+            torch.testing.assert_close(mine, ref, rtol=0, atol=0)
+
+
 def _attention(causal, attn_pdrop=0.3):
     torch.manual_seed(0)
     return blocks.Attention(32, 4, causal=causal, attn_pdrop=attn_pdrop)
@@ -154,15 +187,50 @@ def _bound(dtype, ref, v):
     return 2.0 ** -7 * amax + 2.0 ** -8 * v.float().abs().max().item()
 
 
+# chip_smoke.py's B2 shapes: the replans' at B=1 and B=32, and the four of
+# the JAX package's ops/bench_pallas.py
+CHIP_SHAPES = [
+    (1, 8, 4, 48, False), (1, 8, 10, 48, True), (1, 8, 3, 64, False), (1, 8, 10, 64, True),
+    (32, 8, 4, 48, False), (32, 8, 10, 48, True), (32, 8, 3, 64, False),
+    (32, 8, 10, 64, True), (1024, 8, 10, 48, True), (1024, 8, 4, 48, False),
+    (1024, 8, 23, 48, False), (4096, 8, 10, 48, True)]
+# edge cases (B, H, T, D, causal, layout): one token; several rows a block;
+# the largest T and D; D not a multiple of the 16-byte vector; inputs
+# contiguous, strided (last stride 2) or one element off a 16-byte boundary
+# (the element-wise staging path)
+EDGES = [
+    (4, 8, 1, 48, True, "bthd"), (512, 8, 1, 48, False, "contiguous"),
+    (200, 8, 2, 64, True, "bthd"), (3, 3, 32, 128, False, "contiguous"),
+    (2, 8, 32, 128, True, "bthd"), (4, 8, 10, 128, True, "bthd"),
+    (4, 8, 10, 36, False, "bthd"), (4, 8, 7, 50, True, "contiguous"),
+    (4, 8, 10, 48, True, "strided"), (4, 8, 10, 48, False, "misaligned"),
+    (64, 8, 3, 64, False, "misaligned")]
+
+
+def _cuda_qkv(B, H, T, D, layout, dtype, gen):
+    def one():
+        if layout == "bthd":  # the transposed views Attention passes
+            return torch.randn((B, T, H, D), generator=gen, device="cuda").to(dtype) \
+                .transpose(1, 2)
+        if layout == "strided":
+            return torch.randn((B, H, T, 2 * D), generator=gen, device="cuda").to(dtype) \
+                [..., ::2]
+        if layout == "misaligned":
+            flat = torch.randn((B * H * T * D + 1,), generator=gen, device="cuda").to(dtype)
+            return flat[1:].view(B, H, T, D)
+        return torch.randn((B, H, T, D), generator=gen, device="cuda").to(dtype)
+    return one(), one(), one()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,T,D,causal", SHAPES + [(1024, 8, 10, 48, True),
-                                                    (3, 3, 32, 128, False)])
+@pytest.mark.parametrize("B,H,T,D,causal,layout",
+                         [s + ("bthd",) for s in SHAPES + CHIP_SHAPES] + EDGES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_kernel_matches_plain(cuda, B, H, T, D, causal, dtype):
-    gen = torch.Generator("cuda").manual_seed(0)
-    # the transposed views Attention passes: (B, T, H, D) memory
-    q, k, v = (torch.randn((B, T, H, D), generator=gen, device=cuda).to(dtype)
-               .transpose(1, 2) for _ in range(3))
+def test_cuda_kernel_matches_plain(cuda, B, H, T, D, causal, layout, dtype):
+    """The kernel against its plain version, and in f32 against the plain
+    version in float64 (f32 rounding of q*scale, a D-term and a T-term sum
+    and exp: ~1e-6 relative; bound 1e-5 relative to max(1, max|ref|))."""
+    q, k, v = _cuda_qkv(B, H, T, D, layout, dtype, torch.Generator("cuda").manual_seed(0))
     before = small_seq_mha.launches
     out = small_seq_mha(q, k, v, causal)
     ref = small_seq_mha_reference(q, k, v, causal)
@@ -170,6 +238,21 @@ def test_cuda_kernel_matches_plain(cuda, B, H, T, D, causal, dtype):
     assert small_seq_mha.launches == before + 1
     assert out.shape == (B, H, T, D) and out.transpose(1, 2).is_contiguous()
     assert (out.float() - ref.float()).abs().max().item() <= _bound(dtype, ref, v)
+    if dtype == torch.float32:
+        f64 = small_seq_mha_reference(q.double(), k.double(), v.double(), causal)
+        assert (out.double() - f64).abs().max().item() <= 1e-5 * max(1.0, f64.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_cuda_light_launch_records_no_autograd_graph(cuda):
+    """Under no_grad, and on inputs that need no gradient, the kernel's
+    output carries no grad_fn; with inputs that need one, PlainBackward's."""
+    gen = torch.Generator("cuda").manual_seed(2)
+    q, k, v = (torch.randn((2, 8, 10, 48), generator=gen, device=cuda) for _ in range(3))
+    assert small_seq_mha(q, k, v, True).grad_fn is None
+    with torch.no_grad():
+        assert small_seq_mha(q.requires_grad_(), k, v, True).grad_fn is None
+    assert small_seq_mha(q, k, v, True).grad_fn is not None
 
 
 @pytest.mark.cuda
