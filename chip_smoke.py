@@ -30,8 +30,13 @@ step from the rows it wrote. Prints one JSON line per phase:
               B5 (the attention and MLP half-blocks) at the extraction's six shapes against
               their plain versions in bf16 and in float64, with the kernel,
               device, plain and unfused route (B3 + F.linear + B1 or the
-              activation + F.linear) times; device kernels per call must be
-              3 (B4) and 2 (B5).
+              activation + F.linear) times and each device kernel's time;
+              device kernels per call must be 4 (B4: norm pass, qkv GEMM,
+              attention core, projection GEMM) and 3 (B5: norm pass, W1
+              and W2 GEMMs). After each, its norm pass and GEMMs alone
+              (`ops/halfblock_gemm.py`) against their plain versions, with
+              F.linear (or the norm) as the library call and each one's
+              share of the call's device time.
   4. replan   MDT-V: reset() and 20 step() calls at B=1 on the eager policy
               (`cuda_graph=False`); per replan B1 24 then 12, B3 50 then 25,
               B2 44 and 44 (4 encoder blocks + 4 decoder blocks x 10 DDIM
@@ -72,9 +77,12 @@ step from the rows it wrote. Prints one JSON line per phase:
  12. train_timing  step ms p50/p90 over 10 steps after 3 warm-up steps,
               chunks/s, peak memory; then a profiled window of 2 steps.
  13. extract  512 synthetic frames (200 px static, 84 px gripper) at batch
-              64 with one shift variant, and 512 annotation sentences: file
-              layout, the bit-exact self-check, B4/B5 and B3 launches, the
-              first batch against the B1 + B3 route; frames/s of both routes.
+              64 with one shift variant, and 512 annotation sentences,
+              through the B4/B5 route: file layout, the bit-exact
+              self-check, B4/B5 and B3 launches, the first batch against
+              the B1 + B3 route; frames/s of both routes in turns, the
+              route `extract_embeddings` takes by default and whether it
+              was the faster in both pairs of turns.
  14. cache_train  3 train steps at B=128 per stream from the written cache:
               no tower kernel, B3 only at the decoder and the MAP head; one
               step kernels vs plain; one validation step; step times and a
@@ -110,6 +118,13 @@ kernels and its `MDTVAgentNet(MDTVConfig())` with seeded random weights,
 caches a text goal, times REPLANS_TREE_AB replans as `timing` does, and
 profiles 5: device ms and events a replan, and the host operators with the
 most self time. One JSON line a tree, then a summary line.
+
+    python3 chip_smoke.py --halfblock-ab build/parent . . build/parent
+
+does the same for B4 and B5: each tree's wrappers at HALFBLOCK_SHAPES
+(event ms a call, each device kernel's ms and launches a call from the
+profiler), F.linear at each of the call's GEMM shapes, and B1's device ms
+at its two step shapes; one line a (kernel, shape), then a summary line.
 """
 
 from __future__ import annotations
@@ -239,9 +254,9 @@ HALFBLOCK_SHAPES = (
 TOWER_BLOCKS = {"voltron": ("rms", 1e-8, True, False, "swishglu"),
                 "clip_vision": ("ln", 1e-5, False, False, "quickgelu"),
                 "clip_text": ("ln", 1e-5, False, True, "quickgelu")}
-# device kernels per half-block call: B4 qkv GEMM, attention core, projection
-# GEMM; B5 W1 GEMM, W2 GEMM
-HALFBLOCK_KERNELS_PER_CALL = {"b4": 3, "b5": 2}
+# device kernels per half-block call: B4 norm pass, qkv GEMM, attention core,
+# projection GEMM; B5 norm pass, W1 GEMM, W2 GEMM
+HALFBLOCK_KERNELS_PER_CALL = {"b4": 4, "b5": 3}
 # B4/B5 bounds relative to max(1, max|ref|). Against the plain version in
 # bf16, which rounds at the same points: two bf16 ulps (7.8e-3 each at the
 # top of a binade: the output's own rounding and a flip of the branch before
@@ -331,12 +346,11 @@ def host_us(fn, torch, calls: int = HOST_CALLS) -> float:
     return seconds / calls * 1e6
 
 
-def device_ms(fn, kernel_name: str, iters: int, torch, per_call: bool = False):
+def device_ms(fn, kernel_name: str, iters: int, torch):
     """Mean device time per launch of the kernels whose name holds
     `kernel_name`, from torch.profiler over `iters` calls: the kernel's own
     time, which the event times above hide where the host's per-call cost
-    is the larger. None when the profiler records no such kernel. With
-    `per_call`, (device ms per call, such kernels per call)."""
+    is the larger. None when the profiler records no such kernel."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -346,8 +360,6 @@ def device_ms(fn, kernel_name: str, iters: int, torch, per_call: bool = False):
         torch.cuda.synchronize()
     times = [e.time_range.elapsed_us() for e in _device_events(torch, prof)
              if kernel_name in e.name]
-    if per_call:
-        return sum(times) / iters / 1e3, len(times) / iters
     return sum(times) / len(times) / 1e3 if times else None
 
 
@@ -1403,6 +1415,33 @@ def unfused_halfblock(torch, kernel, tensors, kw):
     return x + (y * gamma if gamma is not None else y)
 
 
+def linear_ms(torch, M, K, N, device, iters: int = 20) -> float:
+    """Event ms of F.linear (cuBLAS) on bf16 (M, K) x (N, K)^T + bias."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device).manual_seed(7)
+    a = torch.randn((M, K), generator=gen, device=device).bfloat16()
+    w = (torch.randn((N, K), generator=gen, device=device) * K ** -0.5).bfloat16()
+    bias = torch.randn((N,), generator=gen, device=device).bfloat16()
+    return event_ms(lambda: F.linear(a, w, bias), iters, torch)
+
+
+def kernels_by_name(torch, fn, iters: int):
+    """{device kernel name: [ms a call, launches a call]} over `iters`
+    calls of `fn` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in _device_events(torch, prof):
+        ms, n = split.get(e.name[:90], (0.0, 0))
+        split[e.name[:90]] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return {k: [ms / iters, n / iters] for k, (ms, n) in split.items()}
+
+
 def halfblock_cost(kernel, tensors, kw):
     """(bytes, FLOP) of one call: every input read once and the output
     written once; B4 8*T*C^2 per image in its products plus 4*C per
@@ -1418,10 +1457,79 @@ def halfblock_cost(kernel, tensors, kw):
     return n_bytes, 2 * B * T * C * (w1.shape[0] + w2.shape[1])
 
 
+def halfblock_parts(kernel, tensors, kw):
+    """The norm pass and the GEMMs of one B4 or B5 call, in launch order:
+    (label, epilogue or norm, weight or gain, bias, residual, gamma)."""
+    x, g, b, w1, b1, w2, b2, gamma = tensors
+    return (("norm", kw["norm"], g, b, None, None),
+            ("qkv" if kernel == "b4" else "w1", "bias" if kernel == "b4" else kw["act"],
+             w1, b1, None, None),
+            ("proj" if kernel == "b4" else "w2", "residual", w2, b2, x, gamma))
+
+
+def halfblock_part_rows(torch, tower, kernel, tensors, kw, split, device):
+    """The norm pass and each GEMM of one B4 or B5 call alone
+    (`ops/halfblock_gemm.py`) against its plain version on the same inputs
+    (the GEMMs on a seeded N(0, 1) A), with its event, device, plain and
+    library ms (F.linear; F.layer_norm or F.rms_norm*), its bound, and its
+    share of the call's device time (`split`, by kernel name)."""
+    import torch.nn.functional as F
+    from mdt_policy_tpu_torch.ops.halfblock_gemm import (
+        EPILOGUES, halfblock_gemm, halfblock_gemm_reference, halfblock_norm,
+        halfblock_norm_reference)
+    gen = torch.Generator(device).manual_seed(3)
+    x = tensors[0]
+    B, T, C = x.shape
+    M = B * T
+    call_ms = sum(ms for name, (ms, _) in split.items() if "halfblock_" in name)
+    rows = []
+    for label, op, w, bias, res, gamma in halfblock_parts(kernel, tensors, kw):
+        if label == "norm":
+            args = (x, w, bias, op, kw["eps"])
+            fn, ref = halfblock_norm, halfblock_norm_reference
+            lib = (lambda: F.layer_norm(x, (C,), w, bias, kw["eps"])) if op == "ln" \
+                else (lambda: F.rms_norm(x, (C,), w, kw["eps"]))
+            name, n_bytes, flops = "halfblock_norm_kernel", 4 * M * C, 0
+            shape = {"M": M, "C": C, "norm": op}
+        else:
+            a = torch.randn((M, w.shape[1]), generator=gen, device=device).bfloat16()
+            args = (a, w, bias, op, None if res is None else res.view(M, C), gamma)
+            fn, ref = halfblock_gemm, halfblock_gemm_reference
+            lib = lambda: F.linear(a, w, bias)  # noqa: E731
+            n_out = w.shape[0] // 2 if op == "swishglu" else w.shape[0]
+            name = "halfblock_gemm_kernel"
+            n_bytes = sum(t.numel() * 2 for t in args if isinstance(t, torch.Tensor)) \
+                + M * n_out * 2
+            flops = 2 * M * w.shape[1] * w.shape[0]
+            shape = {"M": M, "K": w.shape[1], "N": n_out, "epilogue": op}
+        out = fn(*args)
+        plain = ref(*args)
+        torch.cuda.synchronize()
+        err = (out.float() - plain.float()).abs().max().item()
+        bound = HALFBLOCK_TOL["plain"] * max(1.0, plain.float().abs().max().item())
+        del out, plain
+        bms, by = bound_ms(n_bytes, flops, "bfloat16")
+        mine = [ms for n, (ms, _) in split.items() if name in n
+                and (label == "norm" or f"<{EPILOGUES.index(op)}>" in n)]  # its template id
+        row = {"phase": "kernel", "kernel": fn.__name__, "shape": f"{tower}:{label}",
+               "half_block": kernel, **shape, "dtype": "bfloat16", "max_abs_err": err,
+               "bound": bound, "ms": event_ms(lambda: fn(*args), 20, torch),
+               "device_ms": device_ms(lambda: fn(*args), name, 5, torch),
+               "plain_ms": event_ms(lambda: ref(*args), 20, torch),
+               "library_ms": event_ms(lib, 20, torch), "bound_ms": bms, "bound_by": by,
+               "share_of_call": sum(mine) / max(call_ms, 1e-9)}
+        emit(row)
+        if not err <= bound:
+            raise AssertionError(f"{fn.__name__} disagrees with its plain version: {row}")
+        rows.append(row)
+    return rows
+
+
 def phase_kernel_halfblocks(torch, device):
     """B4 and B5 against their plain versions (bf16) and float64 of the plain
     versions, at the extraction's shapes; times of the kernel, its device
-    kernels, the plain version and the unfused B1 + B3 route."""
+    kernels, the plain version and the unfused B1 + B3 route; then each
+    part of the call alone (`halfblock_part_rows`)."""
     from mdt_policy_tpu_torch.ops.attention_halfblock import (
         attention_halfblock, attention_halfblock_reference)
     from mdt_policy_tpu_torch.ops.mlp_halfblock import mlp_halfblock, mlp_halfblock_reference
@@ -1440,8 +1548,9 @@ def phase_kernel_halfblocks(torch, device):
             bounds[label] = HALFBLOCK_TOL[label] * max(1.0, r.abs().max().item())
         del plain, f64
         iters = 20
-        dev_ms, per_call = device_ms(lambda: fn(*tensors, **kw), "halfblock_", 5, torch,
-                                     per_call=True)
+        split = kernels_by_name(torch, lambda: fn(*tensors, **kw), 5)
+        ours = [v for name, v in split.items() if "halfblock_" in name]
+        per_call = sum(n for _, n in ours)
         n_bytes, flops = halfblock_cost(kernel, tensors, kw)
         bms, by = bound_ms(n_bytes, flops, "bfloat16")
         row = {"phase": "kernel", "kernel": fn.__name__, "shape": tower,
@@ -1449,7 +1558,8 @@ def phase_kernel_halfblocks(torch, device):
                "dtype": "bfloat16", "max_abs_err": errs["plain"], "bound": bounds["plain"],
                "max_abs_err_float64": errs["float64"], "bound_float64": bounds["float64"],
                "ms": event_ms(lambda: fn(*tensors, **kw), iters, torch),
-               "device_ms": dev_ms, "device_kernels_per_call": per_call,
+               "device_ms": sum(ms for ms, _ in ours), "device_kernels_per_call": per_call,
+               "device_kernels": split,
                "plain_ms": event_ms(lambda: ref(*tensors, **kw), iters, torch),
                "unfused_ms": event_ms(lambda: unfused_halfblock(torch, kernel, tensors, kw),
                                       iters, torch),
@@ -1462,6 +1572,7 @@ def phase_kernel_halfblocks(torch, device):
             raise AssertionError(f"{fn.__name__} ran {per_call} device kernels per call, "
                                  f"expected {HALFBLOCK_KERNELS_PER_CALL[kernel]}")
         rows.append(row)
+        rows += halfblock_part_rows(torch, tower, kernel, tensors, kw, split, device)
     return rows
 
 
@@ -1514,7 +1625,7 @@ def phase_extract(torch, net, device, launches: Launches, smi, root):
     out = os.path.join(root, "extracted")
     launches.reset()
     t0 = time.perf_counter()
-    extract_embeddings(root, net, batch_size=EXTRACT_BATCH, aug_variants=1)
+    extract_embeddings(root, net, batch_size=EXTRACT_BATCH, aug_variants=1, halfblocks=True)
     extract_lang_goals(root, net, context_length=cfg.clip_context_length)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -1574,6 +1685,11 @@ def phase_extract(torch, net, device, launches: Launches, smi, root):
         torch.cuda.synchronize()
         timed["halfblocks" if halfblocks else "b1_b3"].append(
             EXTRACT_FRAMES / (time.perf_counter() - t1))
+    # the default is the route that was faster in both pairs of turns
+    default = "halfblocks" if inspect.signature(extract_embeddings).parameters[
+        "halfblocks"].default else "b1_b3"
+    faster = ["halfblocks" if hb > b1 else "b1_b3"
+              for hb, b1 in zip(timed["halfblocks"], timed["b1_b3"])]
     profiles = {}
     for name, halfblocks in (("halfblocks", True), ("b1_b3", False)):
         fwd = make_fwd(net, **sizes, halfblocks=halfblocks)
@@ -1585,7 +1701,8 @@ def phase_extract(torch, net, device, launches: Launches, smi, root):
            "route_vs_b1_b3": route,
            "frames_per_s": {k: v for k, v in timed.items()},
            "frames_per_s_mean": {k: float(np.mean(v)) for k, v in timed.items()},
-           "card": smi}
+           "default_route": default, "faster_route_by_pair": faster,
+           "default_faster_in_both_pairs": faster == [default, default], "card": smi}
     emit(row)
     for name, prof in profiles.items():
         emit({"phase": "extract_profile", "route": name, "batch": EXTRACT_BATCH, **prof,
@@ -1756,7 +1873,7 @@ def summary(rows, paths):
             ("attention_halfblock", "attention_halfblock.cu",
              "mdt_policy_tpu/ops/attention_halfblock.py:145", "hb", "voltron", "bfloat16",
              ("extract",)),
-            ("mlp_halfblock", "mlp_halfblock.cu", "mdt_policy_tpu/ops/mlp_halfblock.py:94",
+            ("mlp_halfblock", "halfblock_gemm.cu", "mdt_policy_tpu/ops/mlp_halfblock.py:94",
              "hb", "voltron", "bfloat16", ("extract",)),
             ("attn_pair_grid", "attn_pair_grid.cu", "tools/attn_kernel_experiment.py:31",
              "var", "voltron: pair-grid bB=16", "bfloat16", ("attn_variants",)),
@@ -1778,18 +1895,27 @@ def summary(rows, paths):
     return {"kernels": entries}
 
 
-def replan_tree(root: str) -> int:
-    """`--replan-tree ROOT`: one tree's turn of `--replan-ab`, in this
-    process."""
+def _tree_device(root: str):
+    """Imports the port from `root` (first on the path) for a `--*-tree`
+    turn; (torch, device, card) or None without a CUDA device."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    from mdt_policy_tpu_torch.agents import MDTVAgentNet, MDTVConfig, MDTVPolicy, init_random_
+        return None
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    smi = phase_device(torch)
+    return torch, device, phase_device(torch)
+
+
+def replan_tree(root: str) -> int:
+    """`--replan-tree ROOT`: one tree's turn of `--replan-ab`, in this
+    process."""
+    found = _tree_device(root)
+    if found is None:
+        return 1
+    torch, device, smi = found
+    from mdt_policy_tpu_torch.agents import MDTVAgentNet, MDTVConfig, MDTVPolicy, init_random_
     build_s = phase_build()
     net = MDTVAgentNet(MDTVConfig(), device=device)
     init_random_(net, torch.Generator().manual_seed(0))
@@ -1807,23 +1933,66 @@ def replan_tree(root: str) -> int:
     return 0
 
 
-def replan_ab(roots) -> int:
-    """`--replan-ab ROOT...`: `--replan-tree` of each root in its own
-    process, in the order given; each tree's line, then a summary line."""
+def halfblock_tree(root: str) -> int:
+    """`--halfblock-tree ROOT`: one tree's turn of `--halfblock-ab`: B4 and
+    B5 at HALFBLOCK_SHAPES (event ms a call, and each device kernel's ms
+    and launches a call from the profiler), F.linear at each of the call's
+    GEMM shapes, and B1's device ms at its step shapes."""
+    found = _tree_device(root)
+    if found is None:
+        return 1
+    torch, device, smi = found
+    from mdt_policy_tpu_torch.ops.attention_halfblock import attention_halfblock
+    from mdt_policy_tpu_torch.ops.fused_qkv_attention import fused_qkv_attention
+    from mdt_policy_tpu_torch.ops.mlp_halfblock import mlp_halfblock
+    phase_build()
+    for kernel, tower, B, T, C, n in HALFBLOCK_SHAPES:
+        tensors, kw = halfblock_inputs(torch, kernel, tower, B, T, C, n, device)
+        fn = attention_halfblock if kernel == "b4" else mlp_halfblock
+        emit({"phase": "halfblock_tree", "root": root, "kernel": fn.__name__,
+              "shape": tower, "x": [B, T, C], "width": n,
+              "ms": event_ms(lambda: fn(*tensors, **kw), 20, torch),
+              "device_kernels": kernels_by_name(torch, lambda: fn(*tensors, **kw), 5),
+              "linear_ms": {label: linear_ms(torch, B * T, w.shape[1], w.shape[0], device)
+                            for label, _, w, _, _, _ in halfblock_parts(kernel, tensors, kw)
+                            if label != "norm"},
+              "card": smi})
+    gen = torch.Generator(device).manual_seed(0)
+    for name, B, T, C, H, causal in KERNEL_SHAPES:
+        if name in ("voltron_train", "clip_vision_train"):
+            qkv = torch.randn((B, T, 3 * C), generator=gen, device=device).bfloat16()
+            emit({"phase": "halfblock_tree", "root": root, "kernel": "fused_qkv_attention",
+                  "shape": name, "device_ms": device_ms(
+                      lambda: fused_qkv_attention(qkv, H, causal),
+                      "fused_qkv_attention_kernel", 10, torch), "card": smi})
+    return 0
+
+
+def trees_ab(flag: str, roots, value: str) -> int:
+    """`--replan-ab` or `--halfblock-ab ROOT...`: `--<flag>-tree` of each
+    root in its own process, in the order given (the trees' packages share
+    a name); each tree's lines, then a summary line: `value` (else
+    `device_ms`) of each (kernel, shape) row, or of the replan row, by
+    root."""
     rows = []
     for root in roots:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--replan-tree", root],
+                               f"--{flag}-tree", root],
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             return proc.returncode
-        row = json.loads(proc.stdout.strip().splitlines()[-1])
-        emit(row)
-        rows.append(row)
-    keys = ("replan_ms_p50", "replan_ms_p90", "device_ms_per_call", "device_events_per_call")
-    emit({"summary": {root: {k: [r[k] for r in rows if r["root"] == root] for k in keys}
-                      for root in dict.fromkeys(roots)}})
+        for line in proc.stdout.splitlines():
+            row = json.loads(line) if line.startswith("{") else {}
+            if row.get("root") == root:
+                emit(row)
+                rows.append(row)
+    summary = {}
+    for row in rows:
+        label = f"{row['kernel']}:{row['shape']}" if "kernel" in row else value
+        summary.setdefault(row["root"], {}).setdefault(label, []).append(
+            row.get(value, row.get("device_ms")))
+    emit({"summary": summary})
     return 0
 
 
@@ -1835,6 +2004,14 @@ if __name__ == "__main__":
     mode = parser.add_mutually_exclusive_group(required=True)
     mode.add_argument("--replan-ab", nargs="+", metavar="ROOT",
                       help="time the MDT-V B=1 eager replan of each tree, in this order")
+    mode.add_argument("--halfblock-ab", nargs="+", metavar="ROOT",
+                      help="time B4, B5 and their device kernels of each tree, in this order")
     mode.add_argument("--replan-tree", metavar="ROOT", help=argparse.SUPPRESS)
+    mode.add_argument("--halfblock-tree", metavar="ROOT", help=argparse.SUPPRESS)
     args = parser.parse_args()
-    sys.exit(replan_ab(args.replan_ab) if args.replan_ab else replan_tree(args.replan_tree))
+    if args.replan_ab:
+        sys.exit(trees_ab("replan", args.replan_ab, "replan_ms_p50"))
+    if args.halfblock_ab:
+        sys.exit(trees_ab("halfblock", args.halfblock_ab, "ms"))
+    sys.exit(replan_tree(args.replan_tree) if args.replan_tree
+             else halfblock_tree(args.halfblock_tree))

@@ -51,8 +51,8 @@
 
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
-#include <cuda_runtime.h>
+#include "sm90.cuh"  // mbarriers, TMA, wgmma descriptors and fences, the launch's set-up
+
 #include <cuda_bf16.h>
 #include <algorithm>
 #include <cmath>
@@ -61,6 +61,7 @@
 
 namespace attn90 {
 
+using namespace sm90;
 using bf16 = __nv_bfloat16;
 
 constexpr int kHeadDim = 64;
@@ -70,7 +71,6 @@ constexpr int kThreads = 128 * kWarpgroups;
 constexpr int kShortSteps = 5;             // 16-key steps held for T <= 80
 constexpr int kMaxSteps = 13;              // ... for T <= 208
 constexpr float kLog2eScale = 0.125f * 1.4426950408889634f;  // 64^-1/2 log2(e)
-constexpr int kTensorMapError = -1;        // returned when a tensor map cannot be made
 
 // 16-key steps a call's registers hold, and its shared memory: two stages of
 // K and V boxes (16 NS rows of 128 bytes) and a Q box (64-row tiles), 1024-
@@ -87,10 +87,6 @@ __host__ __device__ constexpr uint32_t stage_bytes(int ns) {
 }
 inline size_t smem_bytes(int seq) {
   return 1024 + 2 * stage_bytes(key_steps(seq)) + 4 * sizeof(uint64_t);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
@@ -114,65 +110,7 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// --- mbarrier, TMA and wgmma ------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
-}
-
-// Waits for the phase of parity `parity` to complete; traps (a launch error
-// the wrapper reports) if it never does, rather than hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t spins = 0; !done; ++spins) {
-    asm volatile("{\n.reg .pred p;\n"
-                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 "selp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-    if (spins == (1u << 26)) __trap();
-  }
-}
-
-// one box of the 3-D tensor map at (channel x, row y, image z) into shared
-// memory at `dst`, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
-                                         int x, int y, int z) {
-  asm volatile("cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-               "[%0], [%1, {%3, %4, %5}], [%2];\n"
-               :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x),
-                  "r"(y), "r"(z)
-               : "memory");
-}
-
-// wgmma matrix descriptor of a 128-byte swizzled tile at shared address
-// `addr`: 8-row groups `sbo` bytes apart, `lbo` the leading byte offset
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-         | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
-         | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
-         | static_cast<uint64_t>(1) << 62;
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps a register in place across asynchronous wgmma reads and writes
-__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r) :: "memory"); }
-__device__ __forceinline__ void pin(uint32_t& r) { asm volatile("" : "+r"(r) :: "memory"); }
+// --- wgmma shapes of the tile ------------------------------------------------
 
 // O (64 x 64) += P (registers) V: V from shared memory, MN-major (trans-b)
 __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
@@ -393,16 +331,16 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* map_kv, const
     mbar_expect_tx(&full[st], stage);
     const int b = w / H, h = w - b * H;
     const uint32_t at = base + st * stage;
-    tma_load(at, map_kv, &full[st], C + h * kHeadDim, 0, b);
-    tma_load(at + box, map_kv, &full[st], 2 * C + h * kHeadDim, 0, b);
-    tma_load(at + 2 * box, map_q, &full[st], h * kHeadDim, 0, b);
+    tma_load_3d(at, map_kv, &full[st], C + h * kHeadDim, 0, b);
+    tma_load_3d(at + box, map_kv, &full[st], 2 * C + h * kHeadDim, 0, b);
+    tma_load_3d(at + 2 * box, map_q, &full[st], h * kHeadDim, 0, b);
   };
   if (threadIdx.x == 0) {
     mbar_init(&full[0], 1);
     mbar_init(&full[1], 1);
     mbar_init(&empty[0], kThreads / 32);
     mbar_init(&empty[1], kThreads / 32);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
     if (static_cast<int>(blockIdx.x) < items) load(blockIdx.x, 0);
   }
   __syncthreads();
@@ -430,24 +368,6 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* map_kv, const
 }
 
 // --- the launch ----------------------------------------------------------------
-
-// cuTensorMapEncodeTiled, reached through the runtime (no link to libcuda)
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
-  }();
-  return fn;
-}
 
 // The packed qkv as a 3-D tensor map: dims (3C channels, T rows, B images),
 // a box of 64 channels x `rows` rows x 1 image, 128-byte swizzle; rows past
@@ -484,11 +404,9 @@ inline int launch(Kernel short_kernel, Kernel long_kernel, const void* qkv, void
   if (int rc = make_qkv_map(&map_kv, qkv, B, seq, C, 16 * ns)) return rc;
   if (int rc = make_qkv_map(&map_q, qkv, B, seq, C, q_box_rows(ns))) return rc;
   const size_t smem = smem_bytes(seq);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  int dev = 0, sms = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  const cudaError_t err =
+      prepare_launch(reinterpret_cast<const void*>(kernel), static_cast<int>(smem), &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<std::min(B * H, sms), kThreads, smem, stream>>>(map_kv, map_q, static_cast<bf16*>(out),
                                                            B, seq, C, H, causal);

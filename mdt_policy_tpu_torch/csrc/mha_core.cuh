@@ -35,6 +35,8 @@
 
 #pragma once
 
+#include "sm90.cuh"  // prepare_launch
+
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cfloat>
@@ -162,8 +164,9 @@ int launch_mha(void (*kernel)(const T*, T*, int, int, int, float, int),
                cudaStream_t stream) {
   const int dh = C / H;
   const size_t smem = smem_bytes<T>(seq, dh);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  int sms = 0;
+  const cudaError_t err =
+      sm90::prepare_launch(reinterpret_cast<const void*>(kernel), static_cast<int>(smem), &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((seq + kQueryTile - 1) / kQueryTile, H, B);
   kernel<<<grid, kWarps * 32, smem, stream>>>(

@@ -46,7 +46,7 @@
 
 #pragma once
 
-#include "halfblock_gemm.cuh"  // cp.async, ldmatrix, mma.sync helpers
+#include "sm90.cuh"  // smem_u32
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -57,13 +57,7 @@
 namespace pair {
 
 using bf16 = __nv_bfloat16;
-using hbgemm::cp_async16;
-using hbgemm::cp_async_commit;
-using hbgemm::cp_async_wait;
-using hbgemm::ldmatrix_x4;
-using hbgemm::mma_bf16;
-using hbgemm::rb;
-using hbgemm::smem_u32;
+using sm90::smem_u32;
 
 constexpr int kHeadDim = 64;
 constexpr int kPairCols = 2 * kHeadDim;          // channels of one head pair
@@ -79,6 +73,31 @@ enum Flags : int { kExp2 = 1, kMxuSum = 2, kNoMax = 4, kBf16Softmax = 8 };
 inline int padded_seq(int seq) { return (seq + 15) / 16 * 16; }
 inline size_t smem_bytes(int seq) {
   return 2 * static_cast<size_t>(padded_seq(seq)) * kLd * sizeof(bf16);
+}
+
+__device__ __forceinline__ float rb(float v) { return __bfloat162float(__float2bfloat16(v)); }
+
+// 16-byte async copy; `valid` false zero-fills the destination
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+               "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+               : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {

@@ -18,14 +18,16 @@ input dtype. The attention core is B1's plain version (f32 scores, as the
 Pallas kernel's `_kernel` computes them; the JAX `_reference` rounds the
 scores to bf16 first, and at f32 the two agree).
 
-On a CUDA tensor the wrapper launches `csrc/attention_halfblock.cu` (three
-kernels: norm-prologue qkv GEMM, attention core, residual projection GEMM;
-built with nvcc at first use) or raises; the kernels take bf16 only. The
-attention core runs the body B1 would run for the same call
-(`fused_qkv_attention._sm90_body`). On a
-CPU tensor it runs the plain version. The backward is autograd through the
-plain version, like the TPU kernel's custom VJP; the frozen towers never
-need it.
+On a CUDA tensor the wrapper launches four kernels on the current stream
+(`ops/halfblock_gemm.py`, `csrc/halfblock_gemm.cu`: the norm pass, once a
+row, and the qkv GEMM with its bias epilogue; `csrc/attention_halfblock.cu`:
+the attention core; the projection GEMM with its residual epilogue) or
+raises; the kernels take bf16 only. The attention core runs the body B1
+would run for the same call (`fused_qkv_attention._sm90_body`). On a CPU
+tensor it runs the plain version. The backward is autograd through the
+plain version, like the TPU kernel's custom VJP; a call that autograd does
+not record (under `no_grad`, or on the frozen towers' weights) launches the
+kernels directly, with no autograd Function around them.
 """
 
 from __future__ import annotations
@@ -37,42 +39,15 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._plain_backward import PlainBackward
+from ._plain_backward import launch_with_plain_backward
 from .fused_qkv_attention import _sm90_body, fused_qkv_attention_reference
+from .halfblock_gemm import (GEMM_COLS, NORMS, check_gemm_shapes, check_tensors,
+                             dot_reference, halfblock_norm_reference, launch_gemm,
+                             launch_norm)
 
-__all__ = ["attention_halfblock", "attention_halfblock_reference", "norm_reference",
-           "dot_reference"]
+__all__ = ["attention_halfblock", "attention_halfblock_reference", "check_halfblock"]
 
 _MAX_SMEM_PER_BLOCK = 232_448  # bytes of shared memory a Hopper block may use
-_GEMM_ROWS = 128               # rows of one GEMM block (halfblock_gemm.cuh kBM)
-_GEMM_COLS = 128               # output columns of one GEMM block (kBN)
-_GEMM_DEPTH = 32               # K step of the GEMM (kBK)
-NORMS = ("rms", "ln")
-
-
-def _acc_dtype(x: torch.Tensor) -> torch.dtype:
-    """f32 accumulation for f32/bf16 inputs; float64 stays float64."""
-    return torch.promote_types(x.dtype, torch.float32)
-
-
-def norm_reference(x: torch.Tensor, g: torch.Tensor, b: Optional[torch.Tensor],
-                   norm: str, eps: float) -> torch.Tensor:
-    """The JAX package's `_norm` (attention_halfblock.py:43-54)."""
-    xf = x.to(_acc_dtype(x))
-    if norm == "rms":
-        r = torch.linalg.vector_norm(xf, dim=-1, keepdim=True) * x.shape[-1] ** -0.5
-        return (x / r.clamp_min(eps).to(x.dtype)) * g
-    mean = xf.mean(-1, keepdim=True)
-    var = (xf - mean).square().mean(-1, keepdim=True)
-    y = ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype) * g
-    return y + b if b is not None else y
-
-
-def dot_reference(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """a @ w.T for a torch Linear weight w (N, K), accumulated in f32 and
-    rounded to the dtype of `a` (the JAX package's `_dot`)."""
-    acc = _acc_dtype(a)
-    return torch.matmul(a.to(acc), w.to(acc).T).to(a.dtype)
 
 
 def attention_halfblock_reference(x, g, b, w_qkv, b_qkv, w_proj, b_proj, gamma,
@@ -80,7 +55,7 @@ def attention_halfblock_reference(x, g, b, w_qkv, b_qkv, w_proj, b_proj, gamma,
                                   causal: bool = False) -> torch.Tensor:
     """Plain version of the kernel (the JAX `_reference`, :107-129, with the
     attention core of the Pallas `_kernel`)."""
-    xn = norm_reference(x, g, b, norm, eps)
+    xn = halfblock_norm_reference(x, g, b, norm, eps)
     qkv = dot_reference(xn, w_qkv) + b_qkv
     att = fused_qkv_attention_reference(qkv, n_heads, causal)
     proj = dot_reference(att, w_proj) + b_proj
@@ -90,90 +65,55 @@ def attention_halfblock_reference(x, g, b, w_qkv, b_qkv, w_proj, b_proj, gamma,
 
 
 def check_halfblock(name: str, x: torch.Tensor, norm: str, b, shapes) -> None:
-    """Checks shared by B4 and B5: x (B, T, C) contiguous; every tensor of
-    `shapes` ({label: (tensor or None, expected shape)}) on x's device, in
-    x's dtype, contiguous, of its shape; the norm's bias only with "ln"."""
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {x.device}")
+    """Checks shared by B4 and B5: x (B, T, C), the norm's bias only with
+    "ln", and `check_tensors` on x and `shapes`."""
     if x.ndim != 3:
         raise ValueError(f"{name}: x must be (B, T, C), got {tuple(x.shape)}")
     if norm not in NORMS:
         raise ValueError(f"{name}: norm must be one of {NORMS}, got {norm!r}")
     if norm == "rms" and b is not None:
         raise ValueError(f"{name}: the RMS norm takes no bias")
-    allowed = (torch.bfloat16,) if x.device.type == "cuda" else (torch.float32,
-                                                                 torch.bfloat16)
-    for label, (t, shape) in {"x": (x, tuple(x.shape)), **shapes}.items():
-        if t is None:
-            continue
-        if t.dtype not in allowed:
-            raise TypeError(f"{name}: {label} is {t.dtype}; on {x.device.type} the "
-                            f"half-blocks take {allowed}")
-        if t.dtype != x.dtype:
-            raise TypeError(f"{name}: {label} in {t.dtype}, x in {x.dtype}; cast the "
-                            "weights to the input's dtype")
-        if t.device != x.device:
-            raise ValueError(f"{name}: {label} on {t.device}, x on {x.device}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: {label} has shape {tuple(t.shape)}, expected {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {label} must be contiguous")
-
-
-def check_gemm_shapes(name: str, x: torch.Tensor, widths, tensors) -> None:
-    """What the CUDA GEMM takes: every output width a multiple of its block,
-    every depth of its K step, rows within the grid, 16-byte alignment."""
-    for label, (width, multiple) in widths.items():
-        if width % multiple:
-            raise ValueError(f"{name}: {label}={width} is not a multiple of {multiple}")
-    if -(-x.shape[0] * x.shape[1] // _GEMM_ROWS) > 65535:
-        raise ValueError(f"{name}: {x.shape[0] * x.shape[1]} rows exceed the grid")
-    if any(t is not None and t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name}: inputs and weights must be 16-byte aligned")
+    check_tensors(name, x, {"x": (x, tuple(x.shape)), **shapes})
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
+def _attention():
+    """The ctypes functions of `csrc/attention_halfblock.cu` (the attention
+    core), built, loaded and typed once per process."""
     lib = _build.load_library("attention_halfblock")
-    ptr, i = ctypes.c_void_p, ctypes.c_int
-    lib.mdt_attention_halfblock.argtypes = [ptr] * 11 + [i] * 5 + [ctypes.c_float, i, i, ptr]
-    lib.mdt_attention_halfblock.restype = i
-    lib.mdt_attention_halfblock_smem_bytes.argtypes = [i, i, i, i]
-    lib.mdt_attention_halfblock_smem_bytes.restype = ctypes.c_size_t
-    return lib
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
+    i = ctypes.c_int
+    core, smem = lib.mdt_halfblock_attention, lib.mdt_halfblock_attention_smem_bytes
+    core.argtypes = [ctypes.c_void_p] * 2 + [i] * 6 + [ctypes.c_void_p]
+    core.restype = i
+    smem.argtypes = [i] * 4
+    smem.restype = ctypes.c_size_t
+    return core, smem
 
 
 def _launch(x, g, b, w_qkv, b_qkv, w_proj, b_proj, gamma, *, n_heads: int,
             norm: str, eps: float, causal: bool) -> torch.Tensor:
     B, T, C = x.shape
-    check_gemm_shapes("attention_halfblock", x,
-                      {"C": (C, _GEMM_COLS), "C (depth)": (C, _GEMM_DEPTH)},
-                      (x, g, b, w_qkv, b_qkv, w_proj, b_proj, gamma))
+    check_gemm_shapes("attention_halfblock", {"C": (C, GEMM_COLS)},
+                      (x, g, b, w_qkv, b_qkv, w_proj, b_proj, gamma), norm_width=C)
     if B > 65535:
         raise ValueError(f"attention_halfblock: batch {B} exceeds the grid's z limit")
-    lib = _library()
+    core, core_smem = _attention()
     sm90 = int(_sm90_body(x.dtype, T, C, n_heads))  # B1's routing of the attention core
-    smem = lib.mdt_attention_halfblock_smem_bytes(T, C, n_heads, sm90)
+    smem = core_smem(T, C, n_heads, sm90)
     if smem > _MAX_SMEM_PER_BLOCK:
         raise ValueError(f"attention_halfblock: T={T}, dh={C // n_heads} needs {smem} "
                          f"bytes of shared memory per block, over {_MAX_SMEM_PER_BLOCK}")
+    stream = _build.current_stream(x)
+    xn = torch.empty_like(x)  # the normalized rows, then the attention output
     qkv = torch.empty((B, T, 3 * C), dtype=x.dtype, device=x.device)
-    att = torch.empty_like(x)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.mdt_attention_halfblock(
-            x.data_ptr(), g.data_ptr(), _ptr(b), w_qkv.data_ptr(), b_qkv.data_ptr(),
-            w_proj.data_ptr(), b_proj.data_ptr(), _ptr(gamma), qkv.data_ptr(),
-            att.data_ptr(), out.data_ptr(), B, T, C, n_heads, int(norm == "ln"),
-            eps, int(causal), sm90, stream)
+    launch_norm(x, g, b, xn, norm, eps, stream)
+    launch_gemm(xn, w_qkv, b_qkv, qkv, "bias", None, None, stream)
+    rc = core(qkv.data_ptr(), xn.data_ptr(), B, T, C, n_heads, int(causal), sm90, stream)
     if rc != 0:
         raise RuntimeError(f"attention_halfblock: CUDA launch failed with error {rc} "
                            f"for x {tuple(x.shape)}, n_heads={n_heads}, norm={norm}")
+    launch_gemm(xn, w_proj, b_proj, out, "residual", x, gamma, stream)
     _build.count_launch(attention_halfblock)
     return out
 
@@ -188,8 +128,9 @@ def attention_halfblock(x: torch.Tensor, g: torch.Tensor, b: Optional[torch.Tens
     g, b: the norm's gain and bias (b None for "rms"); w_qkv (3C, C) and
     w_proj (C, C) torch Linear weights with biases b_qkv (3C,), b_proj (C,);
     gamma (C,) or None. Every tensor in the dtype of x. CUDA tensors (bf16)
-    run the kernels, one call counted in `attention_halfblock.launches`;
-    CPU tensors run the plain version."""
+    run the kernels, one call counted in `attention_halfblock.launches`,
+    through `PlainBackward` only where autograd wants a gradient; CPU
+    tensors run the plain version."""
     C = x.shape[-1]
     check_halfblock("attention_halfblock", x, norm, b, {
         "g": (g, (C,)), "b": (b, (C,)), "w_qkv": (w_qkv, (3 * C, C)),
@@ -202,7 +143,8 @@ def attention_halfblock(x: torch.Tensor, g: torch.Tensor, b: Optional[torch.Tens
     tensors = (x, g, b, w_qkv, b_qkv, w_proj, b_proj, gamma)
     if x.device.type == "cpu":
         return attention_halfblock_reference(*tensors, **kwargs)
-    return PlainBackward.apply(_launch, attention_halfblock_reference, kwargs, *tensors)
+    return launch_with_plain_backward(_launch, attention_halfblock_reference, kwargs,
+                                      *tensors)
 
 
 attention_halfblock.launches = 0

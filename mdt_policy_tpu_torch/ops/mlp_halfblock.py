@@ -13,24 +13,26 @@ Norms, weights and rounding points as in `ops/attention_halfblock.py`: the
 plain version, `mlp_halfblock_reference`, follows the JAX `_reference`
 (:70-83) op for op, silu written as gate * sigmoid(gate) as jax.nn.silu is.
 
-On a CUDA tensor the wrapper launches `csrc/mlp_halfblock.cu` (two kernels:
-norm-prologue W1 GEMM with the activation in its epilogue, residual W2 GEMM)
-or raises; the kernels take bf16 only. On a CPU tensor it runs the plain
-version. The backward is autograd through the plain version.
+On a CUDA tensor the wrapper launches three kernels on the current stream
+(`ops/halfblock_gemm.py`, `csrc/halfblock_gemm.cu`: the norm pass, once a
+row; the W1 GEMM with the bias and the activation in its epilogue; the W2
+GEMM with its residual epilogue) or raises; the kernels take bf16 only. On
+a CPU tensor it runs the plain version. The backward is autograd through
+the plain version; a call that autograd does not record launches the
+kernels directly, with no autograd Function around them.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Optional
 
 import torch
 
 from . import _build
-from ._plain_backward import PlainBackward
-from .attention_halfblock import (_GEMM_COLS, _GEMM_DEPTH, _ptr, check_gemm_shapes,
-                                  check_halfblock, dot_reference, norm_reference)
+from ._plain_backward import launch_with_plain_backward
+from .attention_halfblock import check_halfblock
+from .halfblock_gemm import (GEMM_COLS, GEMM_DEPTH, check_gemm_shapes, dot_reference,
+                             halfblock_norm_reference, launch_gemm, launch_norm)
 
 __all__ = ["mlp_halfblock", "mlp_halfblock_reference"]
 
@@ -40,7 +42,7 @@ ACTS = ("swishglu", "quickgelu")
 def mlp_halfblock_reference(x, g, b, w1, b1, w2, b2, gamma, act: str = "swishglu",
                             norm: str = "rms", eps: float = 1e-8) -> torch.Tensor:
     """Plain version of the kernel (the JAX `_reference`)."""
-    xn = norm_reference(x, g, b, norm, eps)
+    xn = halfblock_norm_reference(x, g, b, norm, eps)
     h = dot_reference(xn, w1) + b1
     if act == "swishglu":
         proj, gate = h.chunk(2, dim=-1)
@@ -53,34 +55,22 @@ def mlp_halfblock_reference(x, g, b, w1, b1, w2, b2, gamma, act: str = "swishglu
     return x + out
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.load_library("mlp_halfblock")
-    ptr, i = ctypes.c_void_p, ctypes.c_int
-    lib.mdt_mlp_halfblock.argtypes = [ptr] * 10 + [i] * 5 + [ctypes.c_float, ptr]
-    lib.mdt_mlp_halfblock.restype = i
-    return lib
-
-
 def _launch(x, g, b, w1, b1, w2, b2, gamma, *, act: str, norm: str,
             eps: float) -> torch.Tensor:
     B, T, C = x.shape
     H = w2.shape[1]
-    check_gemm_shapes("mlp_halfblock", x, {
-        "hidden": (H, _GEMM_COLS // 2 if act == "swishglu" else _GEMM_COLS),
-        "C": (C, _GEMM_COLS), "C (depth)": (C, _GEMM_DEPTH),
-        "hidden (depth)": (H, _GEMM_DEPTH)}, (x, g, b, w1, b1, w2, b2, gamma))
+    # each GEMM tile reads 128 rows of its weight (W1: 64 proj and 64 gate
+    # rows for "swishglu"), 64 deep a stage
+    check_gemm_shapes("mlp_halfblock", {
+        "rows of w1": (w1.shape[0], GEMM_COLS), "C": (C, GEMM_COLS),
+        "hidden (depth)": (H, GEMM_DEPTH)}, (x, g, b, w1, b1, w2, b2, gamma), norm_width=C)
+    stream = _build.current_stream(x)
+    xn = torch.empty_like(x)
     h = torch.empty((B, T, H), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _library().mdt_mlp_halfblock(
-            x.data_ptr(), g.data_ptr(), _ptr(b), w1.data_ptr(), b1.data_ptr(),
-            w2.data_ptr(), b2.data_ptr(), _ptr(gamma), h.data_ptr(), out.data_ptr(),
-            B * T, C, H, int(norm == "ln"), int(act == "swishglu"), eps, stream)
-    if rc != 0:
-        raise RuntimeError(f"mlp_halfblock: CUDA launch failed with error {rc} for x "
-                           f"{tuple(x.shape)}, hidden={H}, act={act}, norm={norm}")
+    launch_norm(x, g, b, xn, norm, eps, stream)
+    launch_gemm(xn, w1, b1, h, act, None, None, stream)
+    launch_gemm(h, w2, b2, out, "residual", x, gamma, stream)
     _build.count_launch(mlp_halfblock)
     return out
 
@@ -96,7 +86,8 @@ def mlp_halfblock(x: torch.Tensor, g: torch.Tensor, b: Optional[torch.Tensor],
     "swishglu" or (H, C) for "quickgelu" and w2 (C, H), torch Linear weights,
     with biases b1, b2; gamma (C,) or None. Every tensor in the dtype of x.
     CUDA tensors (bf16) run the kernels, one call counted in
-    `mlp_halfblock.launches`; CPU tensors run the plain version."""
+    `mlp_halfblock.launches`, through `PlainBackward` only where autograd
+    wants a gradient; CPU tensors run the plain version."""
     if act not in ACTS:
         raise ValueError(f"mlp_halfblock: act must be one of {ACTS}, got {act!r}")
     C = x.shape[-1]
@@ -109,7 +100,7 @@ def mlp_halfblock(x: torch.Tensor, g: torch.Tensor, b: Optional[torch.Tensor],
     tensors = (x, g, b, w1, b1, w2, b2, gamma)
     if x.device.type == "cpu":
         return mlp_halfblock_reference(*tensors, **kwargs)
-    return PlainBackward.apply(_launch, mlp_halfblock_reference, kwargs, *tensors)
+    return launch_with_plain_backward(_launch, mlp_halfblock_reference, kwargs, *tensors)
 
 
 mlp_halfblock.launches = 0

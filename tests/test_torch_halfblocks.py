@@ -22,10 +22,14 @@ import torch
 
 from chip_smoke import TOWER_BLOCKS  # {tower: (norm, eps, LayerScale, causal, act)}
 from mdt_policy_tpu_torch.ops import attention_halfblock as ahb
+from mdt_policy_tpu_torch.ops import halfblock_gemm as hbg
 from mdt_policy_tpu_torch.ops import mlp_halfblock as mhb
-from mdt_policy_tpu_torch.ops._plain_backward import PlainBackward
+from mdt_policy_tpu_torch.ops._plain_backward import PlainBackward, launch_with_plain_backward
 from mdt_policy_tpu_torch.ops.attention_halfblock import (
     attention_halfblock, attention_halfblock_reference)
+from mdt_policy_tpu_torch.ops.fused_qkv_attention import fused_qkv_attention_reference
+from mdt_policy_tpu_torch.ops.halfblock_gemm import (
+    halfblock_gemm, halfblock_gemm_reference, halfblock_norm, halfblock_norm_reference)
 from mdt_policy_tpu_torch.ops.mlp_halfblock import mlp_halfblock, mlp_halfblock_reference
 
 # f32: both sides accumulate in f32 and differ in summation order
@@ -197,31 +201,141 @@ def test_kernel_function_backward_is_plain_backward(tower):
 
 def test_build_digest_covers_the_shared_headers(tmp_path):
     """A kernel's library is keyed by its source and every shared header: an
-    edited header (which the source may include) rebuilds it."""
+    edited header (which the source may include) rebuilds it; an edited
+    source rebuilds only its own library."""
     import shutil
     from mdt_policy_tpu_torch.ops import _build
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     names = [p.stem for p in csrc.glob("*.cu")]
-    assert {"attention_halfblock", "mlp_halfblock"} <= set(names)
+    assert {"attention_halfblock", "halfblock_gemm", "fused_qkv_attention"} <= set(names)
     before = {n: _build.digest(n, csrc) for n in names}
     assert before == {n: _build.digest(n) for n in names}
-    header = csrc / "halfblock_gemm.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
-    after = {n: _build.digest(n, csrc) for n in names}
-    assert all(after[n] != before[n] for n in names)
-    (csrc / "mlp_halfblock.cu").write_text((csrc / "mlp_halfblock.cu").read_text() + "\n")
-    assert _build.digest("mlp_halfblock", csrc) != after["mlp_halfblock"]
+    for header in ("sm90.cuh", "attention_sm90.cuh"):  # the Hopper helpers; B1's and B4's body
+        path = csrc / header
+        path.write_text(path.read_text() + "\n// edited\n")
+        after = {n: _build.digest(n, csrc) for n in names}
+        assert all(after[n] != before[n] for n in names), header
+        before = after
+    (csrc / "halfblock_gemm.cu").write_text((csrc / "halfblock_gemm.cu").read_text() + "\n")
+    assert _build.digest("halfblock_gemm", csrc) != after["halfblock_gemm"]
     assert _build.digest("attention_halfblock", csrc) == after["attention_halfblock"]
 
 
 def test_wrappers_count_no_launch_on_cpu():
-    before = (attention_halfblock.launches, mlp_halfblock.launches)
+    wrappers = (attention_halfblock, mlp_halfblock, halfblock_norm, halfblock_gemm)
+    before = [fn.launches for fn in wrappers]
     attention_halfblock(*_attention_args(_port(_attention_arrays("voltron", 5),
                                                torch.float32), "voltron"))
-    mlp_halfblock(*_mlp_args(_port(_mlp_arrays("clip_text", 5), torch.float32),
-                             "clip_text"))
-    assert (attention_halfblock.launches, mlp_halfblock.launches) == before
+    t = _port(_mlp_arrays("clip_text", 5), torch.float32)
+    mlp_halfblock(*_mlp_args(t, "clip_text"))
+    xn = halfblock_norm(t["x"], t["g"], t["b"], "ln", 1e-5)
+    torch.testing.assert_close(xn, halfblock_norm_reference(t["x"], t["g"], t["b"], "ln", 1e-5),
+                               rtol=0, atol=0)
+    h = halfblock_gemm(xn, t["w1"], t["b1"], "quickgelu")
+    torch.testing.assert_close(h, halfblock_gemm_reference(xn, t["w1"], t["b1"], "quickgelu"),
+                               rtol=0, atol=0)
+    assert [fn.launches for fn in wrappers] == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tower", list(TOWER_BLOCKS))
+@pytest.mark.parametrize("kernel", ["b4", "b5"])
+def test_split_path_composes_to_the_references(kernel, tower, dtype):
+    """The norm pass and the GEMMs' plain versions, chained as the CUDA
+    wrappers chain the kernels (norm once, then each GEMM with its
+    epilogue), give B4's and B5's plain versions bit for bit: the rounding
+    contract that the kernels' epilogues follow."""
+    norm, eps, _, causal, act = TOWER_BLOCKS[tower]
+    dt = getattr(torch, dtype)
+    if kernel == "b4":
+        t = _port(_attention_arrays(tower, 13), dt)
+        xn = halfblock_norm_reference(t["x"], t["g"], t["b"], norm, eps)
+        qkv = halfblock_gemm_reference(xn, t["w_qkv"], t["b_qkv"], "bias")
+        att = fused_qkv_attention_reference(qkv, N_HEADS, causal)
+        split = halfblock_gemm_reference(att, t["w_proj"], t["b_proj"], "residual", t["x"],
+                                         t["gamma"])
+        whole = attention_halfblock_reference(*_attention_args(t, tower))
+    else:
+        t = _port(_mlp_arrays(tower, 13), dt)
+        xn = halfblock_norm_reference(t["x"], t["g"], t["b"], norm, eps)
+        h = halfblock_gemm_reference(xn, t["w1"], t["b1"], act)
+        split = halfblock_gemm_reference(h, t["w2"], t["b2"], "residual", t["x"], t["gamma"])
+        whole = mlp_halfblock_reference(*_mlp_args(t, tower))
+    assert split.dtype == dt and torch.equal(split, whole)
+
+
+@pytest.mark.parametrize("kernel", ["b4", "b5"])
+@pytest.mark.parametrize("mode", ["no_grad", "frozen_inputs", "grad"])
+def test_dispatch_enters_autograd_function_only_for_gradients(kernel, mode):
+    """The CUDA branch's dispatch, its launch stood in for by the plain
+    version (the kernels have no CPU mode): under no_grad, or on inputs
+    that need no gradient (the frozen towers), the launch runs directly,
+    with no autograd Function and no graph; where autograd wants a gradient
+    (here the input's) it runs through PlainBackward, whose gradient is the
+    plain version's."""
+    module, ref, arrays, args_of = (
+        (ahb, attention_halfblock_reference, _attention_arrays("clip_text", 9),
+         _attention_args) if kernel == "b4"
+        else (mhb, mlp_halfblock_reference, _mlp_arrays("voltron", 9), _mlp_args))
+    t = _port(arrays, torch.float32)
+    t["x"].requires_grad_(mode != "frozen_inputs")
+    args = args_of(t, "clip_text" if kernel == "b4" else "voltron")
+    names = ("n_heads", "norm", "eps", "causal") if kernel == "b4" else ("act", "norm", "eps")
+    kwargs = dict(zip(names, args[8:]))
+    launched = []
+
+    def launch(*tensors, **kw):
+        launched.append(kw)
+        return ref(*tensors, **kw)
+    with mock.patch.object(module, "_launch", launch), \
+            mock.patch.object(PlainBackward, "apply", wraps=PlainBackward.apply) as applied, \
+            torch.set_grad_enabled(mode != "no_grad"):
+        out = launch_with_plain_backward(module._launch, ref, kwargs, *args[:8])
+    assert launched == [kwargs]
+    assert applied.call_count == (mode == "grad")
+    assert (out.grad_fn is not None) == (mode == "grad")
+    if mode == "grad":
+        up = torch.from_numpy(_normal(np.random.default_rng(4), tuple(out.shape)))
+        (grad,) = torch.autograd.grad((out * up).sum(), t["x"])
+        ref_x = t["x"].detach().clone().requires_grad_()
+        (want,) = torch.autograd.grad((ref(ref_x, *args[1:8], **kwargs) * up).sum(), ref_x)
+        torch.testing.assert_close(grad, want, rtol=0, atol=0)
+
+
+def _cpu_tensor(shape, dtype=torch.bfloat16):
+    return torch.zeros(shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("case", ["b4_width", "b4_norm_width", "b5_hidden_quickgelu",
+                                  "b5_hidden_swishglu", "gemm_depth", "gemm_rows",
+                                  "misaligned"])
+def test_cuda_launch_rejects_shapes_the_tile_does_not_take(case):
+    """The CUDA branch checks, before it builds or launches anything, the
+    shapes the tile takes: output widths a multiple of 128 rows of W (64
+    proj and 64 gate rows for SwishGLU), depths of 64, a normalized width of
+    at most 1024, and 16-byte aligned tensors; every tower width passes."""
+    if case.startswith("b4"):
+        C = 96 if case == "b4_width" else 1152
+        x, v = _cpu_tensor((2, 5, C)), _cpu_tensor((C,))
+        call = lambda: ahb._launch(x, v, None, _cpu_tensor((3 * C, C)), _cpu_tensor((3 * C,)),  # noqa: E731
+                                   _cpu_tensor((C, C)), v, None, n_heads=C // 32,
+                                   norm="rms", eps=1e-8, causal=False)
+    elif case.startswith("b5"):
+        C, H = 128, 96 if case == "b5_hidden_quickgelu" else 32
+        act = case.split("_")[-1]
+        n1 = 2 * H if act == "swishglu" else H
+        x, v = _cpu_tensor((2, 5, C)), _cpu_tensor((C,))
+        call = lambda: mhb._launch(x, v, v, _cpu_tensor((n1, C)), _cpu_tensor((n1,)),  # noqa: E731
+                                   _cpu_tensor((C, H)), v, None, act=act, norm="ln", eps=1e-5)
+    else:
+        K, n_w = {"gemm_depth": (96, 128), "gemm_rows": (128, 192)}.get(case, (128, 128))
+        a = _cpu_tensor((4, K)) if case != "misaligned" \
+            else _cpu_tensor((4 * K + 1,))[1:].view(4, K)  # 2 bytes off 16
+        call = lambda: hbg._gemm_launch(a, _cpu_tensor((n_w, K)), _cpu_tensor((n_w,)),  # noqa: E731
+                                        None, None, epilogue="swishglu")
+    with pytest.raises(ValueError):
+        call()
 
 
 @pytest.mark.parametrize("change,error", [
@@ -374,3 +488,83 @@ def test_cuda_kernels_refuse_float32():
     tensors, kw = halfblock_inputs(torch, "b4", "voltron", 1, 196, 384, 6, "cuda")
     with pytest.raises(TypeError):
         attention_halfblock(*(None if t is None else t.float() for t in tensors), **kw)
+
+
+# the GEMM alone at ragged M (a tile's edge) and the extraction's M (B * T of
+# chip_smoke.py's HALFBLOCK_SHAPES: 25,088, 12,608, 39,424): (epilogue, K,
+# rows of W, LayerScale): Voltron's qkv and SwishGLU W1, CLIP vision's
+# QuickGELU W1, Voltron's W2 with gamma, CLIP text's projection without
+GEMM_MS = [1, 127, 129, 12608, 25088, 39424]
+GEMM_CASES = [("bias", 384, 1152, False), ("swishglu", 384, 3072, False),
+              ("quickgelu", 768, 3072, False), ("residual", 1536, 384, True),
+              ("residual", 512, 512, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", GEMM_MS)
+@pytest.mark.parametrize("epilogue,K,n_w,has_gamma", GEMM_CASES)
+def test_cuda_gemm_matches_plain(epilogue, K, n_w, has_gamma, M):
+    """The GEMM against its plain version on the same bf16 inputs (bound:
+    chip_smoke.py's HALFBLOCK_TOL["plain"], two bf16 ulps of the output),
+    one launch counted, and a rerun bit-identical (no split K, no atomics)."""
+    _needs_cuda()
+    from chip_smoke import HALFBLOCK_TOL
+    gen = torch.Generator("cuda").manual_seed(M + K)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).bfloat16()
+    n_out = n_w // 2 if epilogue == "swishglu" else n_w
+    a, w, bias = r(M, K), r(n_w, K, scale=K ** -0.5), r(n_w, scale=0.02)
+    res = r(M, n_out) if epilogue == "residual" else None
+    gamma = r(n_out, scale=0.5) if has_gamma else None
+    before = halfblock_gemm.launches
+    out = halfblock_gemm(a, w, bias, epilogue, res, gamma)
+    plain = halfblock_gemm_reference(a, w, bias, epilogue, res, gamma)
+    torch.cuda.synchronize()
+    assert halfblock_gemm.launches == before + 1 and out.shape == (M, n_out)
+    err = (out.float() - plain.float()).abs().max().item()
+    assert err <= HALFBLOCK_TOL["plain"] * max(1.0, plain.float().abs().max().item()), err
+    assert torch.equal(out, halfblock_gemm(a, w, bias, epilogue, res, gamma))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", GEMM_MS)
+@pytest.mark.parametrize("norm,C", [("rms", 384), ("ln", 768), ("ln", 512)])
+def test_cuda_norm_matches_plain(norm, C, M):
+    """The norm pass against its plain version: the same rounding points,
+    f32 statistics summed in another order and rsqrtf, so a rounding may
+    flip (bound: HALFBLOCK_TOL["plain"], two bf16 ulps of the output)."""
+    _needs_cuda()
+    from chip_smoke import HALFBLOCK_TOL
+    gen = torch.Generator("cuda").manual_seed(M + C)
+    x = torch.randn((M, C), generator=gen, device="cuda").bfloat16()
+    g = (1 + 0.1 * torch.randn((C,), generator=gen, device="cuda")).bfloat16()
+    b = (0.1 * torch.randn((C,), generator=gen, device="cuda")).bfloat16() \
+        if norm == "ln" else None
+    eps = 1e-5 if norm == "ln" else 1e-8
+    before = halfblock_norm.launches
+    out = halfblock_norm(x, g, b, norm, eps)
+    plain = halfblock_norm_reference(x, g, b, norm, eps)
+    torch.cuda.synchronize()
+    assert halfblock_norm.launches == before + 1
+    err = (out.float() - plain.float()).abs().max().item()
+    assert err <= HALFBLOCK_TOL["plain"] * max(1.0, plain.float().abs().max().item()), err
+    assert torch.equal(out, halfblock_norm(x, g, b, norm, eps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["b4", "b5"])
+def test_cuda_light_launch_records_no_autograd_graph(kernel):
+    """Under no_grad, and on inputs that need no gradient (the frozen
+    towers), the half-block's output carries no grad_fn; with an input that
+    needs one, PlainBackward's."""
+    _needs_cuda()
+    from chip_smoke import halfblock_inputs
+    tensors, kw = halfblock_inputs(torch, kernel, "voltron", 2, 196, 384,
+                                   6 if kernel == "b4" else 1536, "cuda")
+    fn = attention_halfblock if kernel == "b4" else mlp_halfblock
+    assert fn(*tensors, **kw).grad_fn is None
+    x = tensors[0].requires_grad_()
+    with torch.no_grad():
+        assert fn(*tensors, **kw).grad_fn is None
+    assert fn(*tensors, **kw).grad_fn is not None and x.requires_grad
