@@ -21,7 +21,9 @@ step from the rows it wrote. Prints one JSON line per phase:
               the kernel's device time from the profiler (`device_ms`), and
               the least time the card could take (`bound_ms`); each B1 row
               names the body it ran (`sm90`, the tensor cores, for bf16;
-              `mha_core` for f32); B2 at the replans' shapes at B=1 and B=32 and the four of the JAX
+              `mha_core` for f32) and carries the wrapper's host microseconds
+              a call (`host_us`, no synchronise: 1000 calls, 100 above B=64);
+              B2 at the replans' shapes at B=1 and B=32 and the four of the JAX
               package's ops/bench_pallas.py, then at edge cases (T=1, T=32,
               D=128, D off the vector width, several rows a block;
               contiguous, strided and misaligned inputs), f32 also against
@@ -98,7 +100,10 @@ step from the rows it wrote. Prints one JSON line per phase:
               the same shapes (bound 2e-2 x max(1, max|ref|)), one line per
               (variant, shape): max |delta|, the kernel's event and device ms,
               its chain ms per layer, bound_ms (bytes-bound, ~0.184 ms), the
-              plain version's, SDPA's and B1's ms, TFLOP/s, launches per chain.
+              plain version's, SDPA's and B1's ms, TFLOP/s, launches per chain,
+              and the registers and local-memory bytes (spills) a thread of
+              the kernel's instantiation. V1 and V3 run B1's tensor-core
+              body (`csrc/attention_sm90.cuh`).
 
 Then the kernel summary line, and last `{"ok": true, "device": ...}`. The
 summary holds each kernel at its main shape, with its launches on every
@@ -125,6 +130,14 @@ does the same for B4 and B5: each tree's wrappers at HALFBLOCK_SHAPES
 (event ms a call, each device kernel's ms and launches a call from the
 profiler), F.linear at each of the call's GEMM shapes, and B1's device ms
 at its two step shapes; one line a (kernel, shape), then a summary line.
+
+    python3 chip_smoke.py --variants-ab build/parent . . build/parent
+
+does the same for the microbench's kernels: each tree's V1 and V3 variants
+(`tools.attn_kernel_experiment.variants`, `attn_kernel_round3.variants`) and
+B1 at VARIANT_BATCHES' Voltron and CLIP vision shapes (event ms a call,
+device ms from the profiler), and B1's device ms at its two step shapes;
+one line a (tree, kernel, shape), then a summary line of the device ms.
 """
 
 from __future__ import annotations
@@ -449,6 +462,8 @@ def phase_kernel_b1(torch, device):
                    "body": "sm90" if _sm90_body(dtype, T, C, H) else "mha_core",
                    "max_abs_err": err,
                    "tol": KERNEL_TOL[dtype_name], "ms": ms,
+                   "host_us": host_us(lambda: fused_qkv_attention(qkv, H, causal), torch,
+                                      HOST_CALLS if B <= 64 else 100),
                    "device_ms": device_ms(lambda: fused_qkv_attention(qkv, H, causal),
                                           "fused_qkv_attention_kernel", 10, torch),
                    "plain_ms": plain_ms,
@@ -588,7 +603,10 @@ def phase_attn_variants(torch, device, launches: Launches, smi):
     launches of that run; every chain must launch its kernel once a layer.
     Then each V1/V3 variant against its plain version on the card at the
     same shapes, with its kernel, device, plain and SDPA times beside the
-    chain's per-layer time and B1's. One JSON line per (variant, shape)."""
+    chain's per-layer time and B1's, its bytes bound, and the registers and
+    local-memory bytes (spills) a thread of its instantiation. One JSON line
+    per (variant, shape)."""
+    from mdt_policy_tpu_torch.ops.pair_attention import kernel_attributes
     from mdt_policy_tpu_torch.tools import attn_kernel_experiment, attn_kernel_round3, perf_probe
     tools = (attn_kernel_experiment, attn_kernel_round3)
     launches.reset()
@@ -619,6 +637,8 @@ def phase_attn_variants(torch, device, launches: Launches, smi):
                 if kernel == "fused_qkv_attention":  # B1 is checked in its own phase
                     continue
                 run = by_key[(tool.__name__.rsplit(".", 1)[-1], case, v.name)]
+                options = {k: getattr(v.fn, "options", {}).get(k, False)
+                           for k in ("exp2", "mxu_sum", "no_max", "bf16_softmax")}
                 out, ref = v.fn(qkv), v.fn.plain(qkv)
                 torch.cuda.synchronize()
                 err = (out.float() - ref.float()).abs().max().item()
@@ -637,7 +657,8 @@ def phase_attn_variants(torch, device, launches: Launches, smi):
                        "sdpa_ms_per_layer": run["sdpa_ms_per_layer"],
                        "b1_ms_per_layer": b1[(run["tool"], case)],
                        "tflops": run["tflops"], "vs_b1": run["vs_production"],
-                       "launches_per_chain": run["launches_per_chain"], "card": smi}
+                       "launches_per_chain": run["launches_per_chain"],
+                       **kernel_attributes(v.fn.kernel, T, **options), "card": smi}
                 emit(row)
                 if not (bool(torch.isfinite(out).all()) and err <= row["bound"]):
                     raise AssertionError(f"{kernel} disagrees with its plain version: {row}")
@@ -1968,8 +1989,45 @@ def halfblock_tree(root: str) -> int:
     return 0
 
 
+def variants_tree(root: str) -> int:
+    """`--variants-tree ROOT`: one tree's turn of `--variants-ab`: each V1
+    and V3 variant of the microbench tools and B1 at VARIANT_BATCHES' two
+    shapes (event ms a call, device ms from the profiler), and B1's device
+    ms at its step shapes."""
+    found = _tree_device(root)
+    if found is None:
+        return 1
+    torch, device, smi = found
+    from mdt_policy_tpu_torch.ops.fused_qkv_attention import fused_qkv_attention
+    from mdt_policy_tpu_torch.tools import attn_kernel_experiment, attn_kernel_round3, perf_probe
+    phase_build()
+    names = {"pair_grid_attention": "attn_pair_grid", "pair_attention": "attn_pair_v3",
+             "fused_qkv_attention": "fused_qkv_attention"}
+    gen = torch.Generator(device).manual_seed(3)
+    for case, shape, H in perf_probe.cases(*VARIANT_BATCHES):
+        qkv = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+        for tool in (attn_kernel_experiment, attn_kernel_round3):
+            for v in tool.variants(H):
+                kernel = names[v.fn.kernel.__name__]
+                if kernel == "fused_qkv_attention" and tool is attn_kernel_round3:
+                    continue  # B1 once a shape
+                emit({"phase": "variants_tree", "root": root, "kernel": kernel,
+                      "shape": f"{case}: {v.name}", "qkv": list(shape),
+                      "ms": event_ms(lambda: v.fn(qkv), 20, torch),
+                      "device_ms": device_ms(lambda: v.fn(qkv), f"{kernel}_kernel", 10, torch),
+                      "card": smi})
+    for name, B, T, C, H, causal in KERNEL_SHAPES:
+        if name in ("voltron_train", "clip_vision_train"):
+            qkv = torch.randn((B, T, 3 * C), generator=gen, device=device).bfloat16()
+            emit({"phase": "variants_tree", "root": root, "kernel": "fused_qkv_attention",
+                  "shape": name, "device_ms": device_ms(
+                      lambda: fused_qkv_attention(qkv, H, causal),
+                      "fused_qkv_attention_kernel", 10, torch), "card": smi})
+    return 0
+
+
 def trees_ab(flag: str, roots, value: str) -> int:
-    """`--replan-ab` or `--halfblock-ab ROOT...`: `--<flag>-tree` of each
+    """`--replan-ab`, `--halfblock-ab` or `--variants-ab ROOT...`: `--<flag>-tree` of each
     root in its own process, in the order given (the trees' packages share
     a name); each tree's lines, then a summary line: `value` (else
     `device_ms`) of each (kernel, shape) row, or of the replan row, by
@@ -2006,12 +2064,20 @@ if __name__ == "__main__":
                       help="time the MDT-V B=1 eager replan of each tree, in this order")
     mode.add_argument("--halfblock-ab", nargs="+", metavar="ROOT",
                       help="time B4, B5 and their device kernels of each tree, in this order")
+    mode.add_argument("--variants-ab", nargs="+", metavar="ROOT",
+                      help="time V1, V3 and B1 at the microbench's shapes of each tree, "
+                           "in this order")
     mode.add_argument("--replan-tree", metavar="ROOT", help=argparse.SUPPRESS)
     mode.add_argument("--halfblock-tree", metavar="ROOT", help=argparse.SUPPRESS)
+    mode.add_argument("--variants-tree", metavar="ROOT", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.replan_ab:
         sys.exit(trees_ab("replan", args.replan_ab, "replan_ms_p50"))
     if args.halfblock_ab:
         sys.exit(trees_ab("halfblock", args.halfblock_ab, "ms"))
-    sys.exit(replan_tree(args.replan_tree) if args.replan_tree
-             else halfblock_tree(args.halfblock_tree))
+    if args.variants_ab:
+        sys.exit(trees_ab("variants", args.variants_ab, "device_ms"))
+    if args.replan_tree:
+        sys.exit(replan_tree(args.replan_tree))
+    sys.exit(halfblock_tree(args.halfblock_tree) if args.halfblock_tree
+             else variants_tree(args.variants_tree))

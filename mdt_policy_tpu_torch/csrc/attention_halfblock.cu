@@ -64,7 +64,7 @@ int mdt_halfblock_attention(const void* qkv, void* att, int B, int T, int C, int
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return sm90 ? attn90::launch(halfblock_attention_sm90_kernel<attn90::kShortSteps>,
                                halfblock_attention_sm90_kernel<attn90::kMaxSteps>, qkv, att, B,
-                               T, C, H, causal, s)
+                               T, C, H, s, causal)
               : mha::launch_mha<__nv_bfloat16>(halfblock_attention_kernel, qkv, att, B, T, C,
                                                H, causal, s);
 }

@@ -2,22 +2,57 @@
 // options, for Hopper (sm_90a): kernel V3, a variant of B1 for measurement.
 //
 // Replaces the Pallas TPU kernel tools/attn_kernel_round3.py (make_pair_v3)
-// of the JAX repository. The contract, the options, the design and what
-// bounds it on the H100 are written at the top of pair_attention.cuh, which
-// holds the body shared with V1 (attn_pair_grid.cu). The options are template
-// parameters: one instantiation for each combination the TPU kernel's
-// branches tell apart (no_max only under mxu_sum, bf16_softmax only without).
+// of the JAX repository. It runs B1's tensor-core body, attention_sm90.cuh
+// (contract, options, design and what bounds it in its header), with the
+// items in the pair grid's order (attn90::PairGrid), as V1
+// (attn_pair_grid.cu) does. The options are its template parameter FLAGS:
+// one instantiation, at each of the two key-step counts, for each
+// combination that the TPU kernel's branches tell apart (no_max only under
+// mxu_sum, bf16_softmax only without it).
 
-#include "pair_attention.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 
+using attn90::bf16;
+
+template <int NS, int FLAGS>
+__global__ void __launch_bounds__(attn90::kThreads, 1)
+attn_pair_v3_kernel(const __grid_constant__ CUtensorMap map_kv,
+                    const __grid_constant__ CUtensorMap map_q, bf16* __restrict__ out, int B,
+                    int seq, int C, int H, int block_b) {
+  extern __shared__ __align__(128) unsigned char smem_sm90[];
+  attn90::attention_block<NS, FLAGS>(&map_kv, &map_q, out, B, seq, C, H, attn90::opaque(0),
+                                     smem_sm90, attn90::PairGrid{block_b});
+}
+
+using Kernel = decltype(&attn_pair_v3_kernel<attn90::kShortSteps, 0>);
+
+struct Kernels {
+  Kernel short_kernel, long_kernel;
+};
+
 template <int FLAGS>
-__global__ void __launch_bounds__(pair::kThreads, 2)
-attn_pair_v3_kernel(const pair::bf16* __restrict__ qkv, pair::bf16* __restrict__ out,
-                    int B, int seq, int C, int block_b) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  pair::pair_block<FLAGS>(qkv, out, B, seq, C, block_b, smem);
+Kernels kernels() {
+  return {attn_pair_v3_kernel<attn90::kShortSteps, FLAGS>,
+          attn_pair_v3_kernel<attn90::kMaxSteps, FLAGS>};
+}
+
+// The instantiations of option bits `flags`; false for a combination the
+// wrapper never passes.
+bool pick(int flags, Kernels* k) {
+  using namespace attn90;
+  switch (flags) {
+    case 0: *k = kernels<0>(); return true;
+    case kExp2: *k = kernels<kExp2>(); return true;
+    case kBf16Softmax: *k = kernels<kBf16Softmax>(); return true;
+    case kExp2 | kBf16Softmax: *k = kernels<kExp2 | kBf16Softmax>(); return true;
+    case kMxuSum: *k = kernels<kMxuSum>(); return true;
+    case kMxuSum | kExp2: *k = kernels<kMxuSum | kExp2>(); return true;
+    case kMxuSum | kNoMax: *k = kernels<kMxuSum | kNoMax>(); return true;
+    case kMxuSum | kExp2 | kNoMax: *k = kernels<kMxuSum | kExp2 | kNoMax>(); return true;
+    default: return false;
+  }
 }
 
 }  // namespace
@@ -26,29 +61,26 @@ extern "C" {
 
 // Dynamic shared memory one block needs; the wrapper checks it against the
 // launch's budget before launching.
-size_t mdt_attn_pair_smem_bytes(int seq) { return pair::smem_bytes(seq); }
+size_t mdt_attn_pair_smem_bytes(int seq) { return attn90::smem_bytes(seq); }
 
-// Launches on `stream` with the option bits `flags` (pair::Flags); returns
-// cudaGetLastError() (0 on success), cudaErrorInvalidValue for a
-// combination the wrapper never passes.
-int mdt_attn_pair_v3(const void* qkv, void* out, int B, int seq, int C, int block_b,
+// Launches on `stream` with the option bits `flags` (attn90::Flags) (bf16,
+// C = 64 H, H even, 1 <= T <= 208, 16-byte aligned qkv); returns the first
+// error (0 on success), cudaErrorInvalidValue for a combination the wrapper
+// never passes.
+int mdt_attn_pair_v3(const void* qkv, void* out, int B, int seq, int C, int H, int block_b,
                      int flags, void* stream) {
-  using namespace pair;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto go = [&](void (*kernel)(const bf16*, bf16*, int, int, int, int)) {
-    return launch_pair(kernel, qkv, out, B, seq, C, block_b, s);
-  };
-  switch (flags) {
-    case 0: return go(attn_pair_v3_kernel<0>);
-    case kExp2: return go(attn_pair_v3_kernel<kExp2>);
-    case kBf16Softmax: return go(attn_pair_v3_kernel<kBf16Softmax>);
-    case kExp2 | kBf16Softmax: return go(attn_pair_v3_kernel<kExp2 | kBf16Softmax>);
-    case kMxuSum: return go(attn_pair_v3_kernel<kMxuSum>);
-    case kMxuSum | kExp2: return go(attn_pair_v3_kernel<kMxuSum | kExp2>);
-    case kMxuSum | kNoMax: return go(attn_pair_v3_kernel<kMxuSum | kNoMax>);
-    case kMxuSum | kExp2 | kNoMax: return go(attn_pair_v3_kernel<kMxuSum | kExp2 | kNoMax>);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  Kernels k;
+  if (!pick(flags, &k)) return static_cast<int>(cudaErrorInvalidValue);
+  return attn90::launch(k.short_kernel, k.long_kernel, qkv, out, B, seq, C, H,
+                        static_cast<cudaStream_t>(stream), block_b);
+}
+
+// Registers and local-memory bytes a thread of the kernel a call with `seq`
+// rows and option bits `flags` runs.
+int mdt_attn_pair_v3_attributes(int seq, int flags, int* regs, int* local_bytes) {
+  Kernels k;
+  if (!pick(flags, &k)) return static_cast<int>(cudaErrorInvalidValue);
+  return attn90::kernel_attributes(k.short_kernel, k.long_kernel, seq, regs, local_bytes);
 }
 
 }  // extern "C"

@@ -54,16 +54,13 @@ int mdt_fused_qkv_attention(const void* qkv, void* out, int B, int seq, int C, i
                                           qkv, out, B, seq, C, H, causal, s);
 }
 
-// Shared memory of one block of the tensor-core body.
-size_t mdt_fused_qkv_attention_sm90_smem_bytes(int seq) { return attn90::smem_bytes(seq); }
-
 // Launches the tensor-core body (bf16, C = 64 H, 1 <= T <= 208, 16-byte
 // aligned qkv) on `stream`; returns the first error (0 on success).
 int mdt_fused_qkv_attention_sm90(const void* qkv, void* out, int B, int seq, int C, int H,
                                  int causal, void* stream) {
   return attn90::launch(fused_qkv_attention_kernel_sm90<attn90::kShortSteps>,
                         fused_qkv_attention_kernel_sm90<attn90::kMaxSteps>, qkv, out, B, seq, C,
-                        H, causal, static_cast<cudaStream_t>(stream));
+                        H, static_cast<cudaStream_t>(stream), causal);
 }
 
 }  // extern "C"

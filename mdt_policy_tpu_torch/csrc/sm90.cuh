@@ -78,6 +78,12 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
                : "memory");
 }
 
+// orders this thread's generic-proxy writes to shared memory before later
+// async-proxy accesses (a wgmma's operand reads, TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // --- wgmma ----------------------------------------------------------------------
 
 // wgmma matrix descriptor of a 128-byte swizzled tile at shared address

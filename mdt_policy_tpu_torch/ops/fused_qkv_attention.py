@@ -14,7 +14,11 @@ contract: `_sm90_body` sends bf16 calls with 64-wide heads and T <= 208 (every
 tower call) to the tensor-core body `csrc/attention_sm90.cuh`, and every
 other call (f32, other head widths) to `csrc/mha_core.cuh`. The backward,
 like the TPU kernel's custom VJP, goes through the plain version; the frozen
-towers never need it.
+towers never need it. A call that autograd does not record (under
+`no_grad`, or on a qkv that needs no gradient) launches the kernel directly,
+with no autograd Function, on the current stream and with no device
+context; the ctypes functions are typed once. The two tensor maps are
+encoded at each call: they hold qkv's address.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import functools
 import torch
 
 from . import _build
-from ._plain_backward import PlainBackward
+from ._plain_backward import launch_with_plain_backward
 
 __all__ = ["fused_qkv_attention", "fused_qkv_attention_reference"]
 
@@ -99,36 +103,34 @@ def _library() -> ctypes.CDLL:
     lib.mdt_fused_qkv_attention_sm90.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.mdt_fused_qkv_attention_sm90.restype = ctypes.c_int
-    lib.mdt_fused_qkv_attention_sm90_smem_bytes.argtypes = [ctypes.c_int]
-    lib.mdt_fused_qkv_attention_sm90_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
 def _launch(qkv: torch.Tensor, n_heads: int, causal: bool) -> torch.Tensor:
     B, T, C3 = qkv.shape
     C = C3 // 3
-    is_bf16 = int(qkv.dtype == torch.bfloat16)
-    if B > 65535:
-        raise ValueError(f"fused_qkv_attention: batch {B} exceeds the grid's "
-                         "z limit of 65535")
     lib = _library()
+    # the tensor-core body's persistent grid takes any batch, and its shared
+    # memory (at most 173,088 bytes at T <= 208) always fits
     sm90 = _sm90_body(qkv.dtype, T, C, n_heads)
-    smem = lib.mdt_fused_qkv_attention_sm90_smem_bytes(T) if sm90 else \
-        lib.mdt_fused_qkv_attention_smem_bytes(T, C, n_heads, is_bf16)
-    if smem > _MAX_SMEM_PER_BLOCK:
-        raise ValueError(f"fused_qkv_attention: T={T}, dh={C // n_heads} needs "
-                         f"{smem} bytes of shared memory per block, over "
-                         f"{_MAX_SMEM_PER_BLOCK}")
+    is_bf16 = int(qkv.dtype == torch.bfloat16)
+    if not sm90:
+        if B > 65535:
+            raise ValueError(f"fused_qkv_attention: batch {B} exceeds the grid's "
+                             "z limit of 65535")
+        smem = lib.mdt_fused_qkv_attention_smem_bytes(T, C, n_heads, is_bf16)
+        if smem > _MAX_SMEM_PER_BLOCK:
+            raise ValueError(f"fused_qkv_attention: T={T}, dh={C // n_heads} needs "
+                             f"{smem} bytes of shared memory per block, over "
+                             f"{_MAX_SMEM_PER_BLOCK}")
     out = torch.empty((B, T, C), dtype=qkv.dtype, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        if sm90:
-            rc = lib.mdt_fused_qkv_attention_sm90(qkv.data_ptr(), out.data_ptr(), B,
-                                                  T, C, n_heads, int(causal), stream)
-        else:
-            rc = lib.mdt_fused_qkv_attention(qkv.data_ptr(), out.data_ptr(), B, T,
-                                             C, n_heads, int(causal), is_bf16,
-                                             stream)
+    stream = _build.current_stream(qkv)
+    if sm90:
+        rc = lib.mdt_fused_qkv_attention_sm90(qkv.data_ptr(), out.data_ptr(), B, T, C,
+                                              n_heads, int(causal), stream)
+    else:
+        rc = lib.mdt_fused_qkv_attention(qkv.data_ptr(), out.data_ptr(), B, T, C,
+                                         n_heads, int(causal), is_bf16, stream)
     if rc != 0:
         raise RuntimeError(f"fused_qkv_attention: CUDA launch failed with "
                            f"error {rc} for qkv {tuple(qkv.shape)} "
@@ -142,12 +144,13 @@ def fused_qkv_attention(qkv: torch.Tensor, n_heads: int,
     """Attention over the packed projection: qkv (B, T, 3C) -> (B, T, C).
 
     CUDA tensors run the kernel (and count one launch in
-    `fused_qkv_attention.launches`); CPU tensors run the plain version."""
+    `fused_qkv_attention.launches`), through `PlainBackward` only where
+    autograd wants a gradient; CPU tensors run the plain version."""
     _check(qkv, n_heads)
     if qkv.device.type == "cpu":
         return fused_qkv_attention_reference(qkv, n_heads, causal)
-    return PlainBackward.apply(_launch, fused_qkv_attention_reference,
-                               {"n_heads": n_heads, "causal": causal}, qkv)
+    return launch_with_plain_backward(_launch, fused_qkv_attention_reference,
+                                      {"n_heads": n_heads, "causal": causal}, qkv)
 
 
 fused_qkv_attention.launches = 0

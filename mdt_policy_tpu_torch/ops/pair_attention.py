@@ -26,16 +26,26 @@ On a CUDA tensor the wrappers launch the hand-written kernels in
 `csrc/attn_pair_grid.cu` (V1, `pair_grid_attention`) and
 `csrc/attn_pair_v3.cu` (V3, `pair_attention`), built with nvcc at first use
 (`_build.py`), or raise; they take bfloat16 only, the dtype the microbench
-drives. On a CPU tensor they run `pair_attention_reference`, the plain
-PyTorch version. There is no backward: the TPU variants define no VJP.
+drives. Both are thin entries over B1's tensor-core body
+`csrc/attention_sm90.cuh`: V1 is that body without options, bit for bit
+B1's non-causal output, and V3 instantiates it once for each effective
+option set (`_flags`). On a CPU tensor they run `pair_attention_reference`,
+the plain PyTorch version. There is no backward: the TPU variants define no
+VJP. A call takes the light launch: its ctypes functions are typed once
+and it launches on the current stream, with no device context.
 
 The TPU kernels' knobs, mapped onto the CUDA kernel:
 
-- `block_b`: images per thread block (the TPU's image block). A ragged
-  batch is covered exactly: the last block stops at B, nothing is padded.
-- `vmem_mb`: the dynamic shared memory (MiB) the launch may opt into, capped
-  by the card's per-block limit; the launch raises when the design needs
-  more, as Mosaic fails past its VMEM budget. None allows the card's limit.
+- `block_b`: the TPU's image block. The kernel's persistent blocks take
+  the (image, head) items in the TPU grid's order (image blocks of
+  `block_b`, head pairs, then each pair's two heads over the block's
+  images), so `block_b` changes only which items run side by side. A
+  ragged batch is covered exactly: the last block stops at B, nothing is
+  padded.
+- `vmem_mb`: the dynamic shared memory (MiB, a fraction allowed) the launch
+  may opt into, capped by the card's per-block limit; the launch raises
+  when the body needs more (173,088 bytes for T > 80), as Mosaic fails past
+  its VMEM budget. None allows the card's limit.
 - `parallel`: the TPU's grid dimension semantics. CUDA thread blocks are
   always independent, so it has no CUDA meaning: `pair_attention` accepts
   it and changes nothing, and `tools.attn_kernel_round3.make_pair_v3`
@@ -51,12 +61,12 @@ import torch
 
 from . import _build
 
-__all__ = ["MAX_SEQ", "pair_attention", "pair_attention_reference",
+__all__ = ["MAX_SEQ", "kernel_attributes", "pair_attention", "pair_attention_reference",
            "pair_grid_attention"]
 
 LOG2E = 1.4426950408889634
 HEAD_DIM = 64
-MAX_SEQ = 208  # keys a warp holds as one register row of scores (13 k16 steps)
+MAX_SEQ = 208  # keys a thread's registers hold as score rows (13 steps of 16 keys)
 _MAX_SMEM_PER_BLOCK = 232_448  # bytes of shared memory a Hopper block may use
 # V3 option bits of the C interface (csrc/attn_pair_v3.cu)
 _EXP2, _MXU_SUM, _NO_MAX, _BF16_SOFTMAX = 1, 2, 4, 8
@@ -95,6 +105,15 @@ def pair_attention_reference(qkv: torch.Tensor, n_heads: int, *, exp2: bool = Fa
     return out.transpose(1, 2).reshape(B, T, C).to(dt)
 
 
+def _flags(exp2: bool = False, mxu_sum: bool = False, no_max: bool = False,
+           bf16_softmax: bool = False) -> int:
+    """V3's option bits for the C entry, read with the TPU kernel's
+    precedence: `no_max` only under `mxu_sum`, `bf16_softmax` only without
+    it. Any of the 16 combinations maps onto one of the 8 the entry takes."""
+    return (_EXP2 * exp2) | (_MXU_SUM * mxu_sum) | (_NO_MAX * (no_max and mxu_sum)) \
+        | (_BF16_SOFTMAX * (bf16_softmax and not mxu_sum))
+
+
 def _check(name: str, qkv: torch.Tensor, n_heads: int, block_b: int) -> None:
     if qkv.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {qkv.device}")
@@ -117,47 +136,67 @@ def _check(name: str, qkv: torch.Tensor, n_heads: int, block_b: int) -> None:
         raise RuntimeError(f"{name}: has no backward (the TPU variants define no VJP)")
 
 
+def _check_smem(name: str, smem: int, vmem_mb) -> None:
+    """Raises where the body's `smem` bytes a block exceed the budget of
+    `vmem_mb` MiB (None: the card's per-block limit)."""
+    budget = _MAX_SMEM_PER_BLOCK if vmem_mb is None \
+        else min(int(vmem_mb * (1 << 20)), _MAX_SMEM_PER_BLOCK)
+    if smem > budget:
+        raise ValueError(f"{name}: the body needs {smem} bytes of shared memory per "
+                         f"block, over the budget of {budget} (vmem_mb={vmem_mb})")
+
+
 @functools.cache
-def _library(name: str) -> ctypes.CDLL:
+def _entries(name: str):
+    """The ctypes functions of `csrc/<name>.cu` (launch, shared memory,
+    attributes), built, loaded and typed once per process."""
     lib = _build.load_library(name)
-    fn = getattr(lib, f"mdt_{name}")
-    # qkv, out, B, seq, C, block_b, [flags (V3),] stream
-    n_ints = 5 if name == "attn_pair_v3" else 4
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * n_ints \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.mdt_attn_pair_smem_bytes.argtypes = [ctypes.c_int]
-    lib.mdt_attn_pair_smem_bytes.restype = ctypes.c_size_t
-    return lib
+    i, p = ctypes.c_int, ctypes.c_void_p
+    v3 = name == "attn_pair_v3"
+    launch = getattr(lib, f"mdt_{name}")
+    # qkv, out, B, seq, C, H, block_b, [flags (V3),] stream
+    launch.argtypes = [p, p] + [i] * (6 if v3 else 5) + [p]
+    launch.restype = i
+    smem = lib.mdt_attn_pair_smem_bytes
+    smem.argtypes = [i]
+    smem.restype = ctypes.c_size_t
+    attributes = getattr(lib, f"mdt_{name}_attributes")
+    # seq, [flags (V3),] regs, local_bytes
+    attributes.argtypes = [i] * (2 if v3 else 1) + [ctypes.POINTER(i)] * 2
+    attributes.restype = i
+    return launch, smem, attributes
 
 
-def _launch(name: str, qkv: torch.Tensor, block_b: int, flags: tuple[int, ...],
-            vmem_mb: int | None) -> torch.Tensor:
+def _launch(name: str, qkv: torch.Tensor, n_heads: int, block_b: int,
+            flags: tuple[int, ...], vmem_mb) -> torch.Tensor:
     B, T, C3 = qkv.shape
-    C = C3 // 3
-    if T > MAX_SEQ:
-        raise ValueError(f"{name}: T={T} exceeds the kernel's {MAX_SEQ} keys")
-    if -(-B // block_b) > 65535:
-        raise ValueError(f"{name}: {-(-B // block_b)} image blocks exceed the "
-                         "grid's z limit of 65535")
+    if not 1 <= T <= MAX_SEQ:
+        raise ValueError(f"{name}: T={T} is outside the kernel's 1..{MAX_SEQ} keys")
     if qkv.data_ptr() % 16:
         raise ValueError(f"{name}: qkv must be 16-byte aligned")
-    lib = _library(name)
-    smem = lib.mdt_attn_pair_smem_bytes(T)
-    budget = _MAX_SMEM_PER_BLOCK if vmem_mb is None else min(vmem_mb << 20,
-                                                             _MAX_SMEM_PER_BLOCK)
-    if smem > budget:
-        raise ValueError(f"{name}: T={T} needs {smem} bytes of shared memory per "
-                         f"block, over the budget of {budget}")
-    out = torch.empty((B, T, C), dtype=qkv.dtype, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        rc = getattr(lib, f"mdt_{name}")(qkv.data_ptr(), out.data_ptr(), B, T, C,
-                                          block_b, *flags, stream)
+    launch, smem, _ = _entries(name)
+    _check_smem(name, smem(T), vmem_mb)
+    out = torch.empty((B, T, C3 // 3), dtype=qkv.dtype, device=qkv.device)
+    rc = launch(qkv.data_ptr(), out.data_ptr(), B, T, C3 // 3, n_heads, block_b, *flags,
+                _build.current_stream(qkv))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc} for qkv "
                            f"{tuple(qkv.shape)}, block_b={block_b}, flags={flags}")
     return out
+
+
+def kernel_attributes(wrapper, T: int, **options) -> dict:
+    """Registers and local-memory bytes a thread (where spills land; 0
+    without) of the instantiation that `wrapper` (`pair_grid_attention`, or
+    `pair_attention` under V3's `options`) runs for T rows. Needs the CUDA
+    toolkit (it builds the kernel) and a card."""
+    name = "attn_pair_v3" if wrapper is pair_attention else "attn_pair_grid"
+    flags = (_flags(**options),) if wrapper is pair_attention else ()
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    rc = _entries(name)[2](T, *flags, ctypes.byref(regs), ctypes.byref(local))
+    if rc != 0:
+        raise RuntimeError(f"{name}: cudaFuncGetAttributes failed with error {rc}")
+    return {"regs": regs.value, "local_bytes": local.value}
 
 
 def pair_grid_attention(qkv: torch.Tensor, n_heads: int, block_b: int = 16) -> torch.Tensor:
@@ -167,7 +206,7 @@ def pair_grid_attention(qkv: torch.Tensor, n_heads: int, block_b: int = 16) -> t
     _check("pair_grid_attention", qkv, n_heads, block_b)
     if qkv.device.type == "cpu":
         return pair_attention_reference(qkv, n_heads)
-    out = _launch("attn_pair_grid", qkv, block_b, (), None)
+    out = _launch("attn_pair_grid", qkv, n_heads, block_b, (), None)
     _build.count_launch(pair_grid_attention)
     return out
 
@@ -182,17 +221,13 @@ def pair_attention(qkv: torch.Tensor, n_heads: int, block_b: int = 16, *,
     `parallel` has no CUDA meaning and changes nothing."""
     del parallel  # every CUDA thread block is independent
     _check("pair_attention", qkv, n_heads, block_b)
-    if vmem_mb is not None and vmem_mb < 1:
+    if vmem_mb is not None and not vmem_mb > 0:
         raise ValueError(f"pair_attention: vmem_mb={vmem_mb} must be positive")
-    # the options' effective combinations, as the TPU kernel's branches read them
-    no_max = no_max and mxu_sum
-    bf16_softmax = bf16_softmax and not mxu_sum
-    if qkv.device.type == "cpu":
+    if qkv.device.type == "cpu":  # the plain version reads the options by the same precedence
         return pair_attention_reference(qkv, n_heads, exp2=exp2, mxu_sum=mxu_sum,
                                         no_max=no_max, bf16_softmax=bf16_softmax)
-    flags = (_EXP2 * exp2) | (_MXU_SUM * mxu_sum) | (_NO_MAX * no_max) \
-        | (_BF16_SOFTMAX * bf16_softmax)
-    out = _launch("attn_pair_v3", qkv, block_b, (flags,), vmem_mb)
+    out = _launch("attn_pair_v3", qkv, n_heads, block_b,
+                  (_flags(exp2, mxu_sum, no_max, bf16_softmax),), vmem_mb)
     _build.count_launch(pair_attention)
     return out
 

@@ -9,10 +9,14 @@ that on a GPU machine without JAX the `cuda` tests of this file run alone:
     python -m pytest tests/test_torch_fused_qkv_attention.py -m cuda --noconftest
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
 
+from mdt_policy_tpu_torch.ops import fused_qkv_attention as fqa
+from mdt_policy_tpu_torch.ops._plain_backward import PlainBackward, launch_with_plain_backward
 from mdt_policy_tpu_torch.ops.fused_qkv_attention import (
     _sm90_body, fused_qkv_attention, fused_qkv_attention_reference)
 
@@ -84,6 +88,39 @@ def test_backward_is_plain_backward():
     y = x.detach().clone().requires_grad_()
     (fused_qkv_attention_reference(y, 2) ** 2).sum().backward()
     torch.testing.assert_close(x.grad, y.grad)
+
+
+@pytest.mark.parametrize("mode", ["no_grad", "frozen_inputs", "grad"])
+def test_dispatch_enters_autograd_function_only_for_gradients(mode):
+    """The CUDA branch's dispatch, its launch stood in for by the plain
+    version (the kernel has no CPU mode): under no_grad, or on a qkv that
+    needs no gradient (the frozen towers), the launch runs directly, with
+    no autograd Function and no graph; where autograd wants qkv's gradient
+    it runs through PlainBackward, whose gradient is the plain version's."""
+    rng = np.random.default_rng(7)
+    qkv = torch.from_numpy(rng.normal(size=(2, 9, 3 * 128)).astype(np.float32))
+    qkv.requires_grad_(mode != "frozen_inputs")
+    kwargs = {"n_heads": 2, "causal": True}
+    launched = []
+
+    def launch(x, **kw):
+        launched.append(kw)
+        return fused_qkv_attention_reference(x, **kw)
+    with mock.patch.object(fqa, "_launch", launch), \
+            mock.patch.object(PlainBackward, "apply", wraps=PlainBackward.apply) as applied, \
+            torch.set_grad_enabled(mode != "no_grad"):
+        out = launch_with_plain_backward(fqa._launch, fused_qkv_attention_reference, kwargs,
+                                         qkv)
+    assert launched == [kwargs]
+    assert applied.call_count == (mode == "grad")
+    assert (out.grad_fn is not None) == (mode == "grad")
+    if mode == "grad":
+        up = torch.from_numpy(rng.normal(size=tuple(out.shape)).astype(np.float32))
+        (grad,) = torch.autograd.grad((out * up).sum(), qkv)
+        ref_x = qkv.detach().clone().requires_grad_()
+        (ref,) = torch.autograd.grad(
+            (fused_qkv_attention_reference(ref_x, **kwargs) * up).sum(), ref_x)
+        torch.testing.assert_close(grad, ref, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -196,3 +233,20 @@ def test_cuda_sm90_body_refuses_misaligned_qkv():
     with pytest.raises(ValueError, match="contiguous"):
         fused_qkv_attention(buf[:B * T * 3 * C].view(B, 3 * C, T).transpose(1, 2), 6)
     assert fused_qkv_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_light_call_records_no_graph():
+    """On the card, under no_grad and on a qkv that needs no gradient, the
+    call enters no autograd Function and its output carries no grad_fn;
+    with a qkv that needs one it runs through PlainBackward."""
+    _needs_cuda()
+    qkv = torch.randn((2, 77, 1152), device="cuda").bfloat16()
+    x = qkv.clone().requires_grad_()
+    with mock.patch.object(PlainBackward, "apply", wraps=PlainBackward.apply) as applied:
+        assert fused_qkv_attention(qkv, 6).grad_fn is None
+        with torch.no_grad():
+            assert fused_qkv_attention(x, 6).grad_fn is None
+        assert applied.call_count == 0
+        assert fused_qkv_attention(x, 6).grad_fn is not None
+        assert applied.call_count == 1

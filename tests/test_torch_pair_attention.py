@@ -12,6 +12,8 @@ that on a GPU machine without JAX the `cuda` tests of this file run alone:
 """
 
 import importlib
+import itertools
+import re
 import sys
 from pathlib import Path
 
@@ -19,7 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from mdt_policy_tpu_torch.ops.pair_attention import (pair_attention,
+from mdt_policy_tpu_torch.ops.fused_qkv_attention import fused_qkv_attention
+from mdt_policy_tpu_torch.ops.pair_attention import (_check_smem, _flags, pair_attention,
                                                      pair_attention_reference,
                                                      pair_grid_attention)
 from mdt_policy_tpu_torch.tools import attn_kernel_experiment, attn_kernel_round3
@@ -45,6 +48,13 @@ V3_OPTIONS = [
     dict(block_b=64, vmem_mb=110, mxu_sum=True, exp2=True),
     dict(block_b=32, vmem_mb=64, mxu_sum=True, exp2=True, no_max=True),
 ]
+
+
+CSRC = REPO / "mdt_policy_tpu_torch" / "csrc"
+# The body's shared memory a block (attention_sm90.cuh::smem_bytes): 1024
+# bytes of alignment, two stages of K, V (16 NS rows of 128 bytes each) and
+# Q (NS = 13: 256 rows), four mbarriers; 74,784 for T <= 80 (NS = 5)
+BODY_SMEM = 1024 + 2 * (2 * 13 * 16 * 128 + 256 * 128) + 32
 
 
 def _jax_tool(name):
@@ -189,6 +199,54 @@ def test_wrappers_reject_non_contiguous_and_bad_dtype(fn):
         fn(torch.zeros(2, 5, 384, dtype=torch.bfloat16), 2, 0)
 
 
+def _entry_flags():
+    """The option bits `mdt_attn_pair_v3` accepts: the `case` labels of
+    `pick` in csrc/attn_pair_v3.cu, over the values of attention_sm90.cuh's
+    Flags."""
+    names = dict(re.findall(r"(k\w+) = (\d+)", re.search(
+        r"enum Flags : int \{([^}]*)\}", (CSRC / "attention_sm90.cuh").read_text()).group(1)))
+    labels = re.findall(r"case ([\w |]+):", (CSRC / "attn_pair_v3.cu").read_text())
+    return {sum(int(names[n.strip()]) for n in label.split("|")) if label != "0" else 0
+            for label in labels}
+
+
+@pytest.mark.parametrize("exp2,mxu_sum,no_max,bf16_softmax",
+                         list(itertools.product((False, True), repeat=4)))
+def test_flags_follow_the_tpu_kernels_precedence(exp2, mxu_sum, no_max, bf16_softmax):
+    """Each of the 16 option combinations maps onto an instantiation the C
+    entry accepts: no_max only under mxu_sum, bf16_softmax only without it,
+    exp2 and mxu_sum as given."""
+    flags = _flags(exp2, mxu_sum, no_max, bf16_softmax)
+    assert flags in _entry_flags()
+    assert (bool(flags & 1), bool(flags & 2), bool(flags & 4), bool(flags & 8)) == (
+        exp2, mxu_sum, no_max and mxu_sum, bf16_softmax and not mxu_sum)
+
+
+def test_flags_reach_every_instantiation():
+    """The 16 combinations reach all 8 instantiations of the C entry."""
+    reached = {_flags(*c) for c in itertools.product((False, True), repeat=4)}
+    assert reached == _entry_flags() and len(reached) == 8
+
+
+@pytest.mark.parametrize("vmem_mb,raises", [(0.1, True), (0.16, True), (0.17, False),
+                                            (1, False), (64, False), (None, False)])
+def test_vmem_budget_below_the_bodys_need_raises(vmem_mb, raises):
+    """The budget check the launch makes with the entry's shared-memory
+    size: 173,088 bytes (0.165 MiB) at T > 80."""
+    if raises:
+        with pytest.raises(ValueError, match="budget"):
+            _check_smem("pair_attention", BODY_SMEM, vmem_mb)
+    else:
+        _check_smem("pair_attention", BODY_SMEM, vmem_mb)
+    _check_smem("pair_attention", 74_784, 0.08)  # T <= 80 fits a smaller budget
+
+
+@pytest.mark.parametrize("vmem_mb", [0, -1])
+def test_vmem_budget_must_be_positive(vmem_mb):
+    with pytest.raises(ValueError, match="positive"):
+        pair_attention(torch.zeros(1, 4, 384, dtype=torch.bfloat16), 2, vmem_mb=vmem_mb)
+
+
 def test_no_backward():
     x = torch.zeros(1, 4, 384, requires_grad=True)
     with pytest.raises(RuntimeError, match="backward"):
@@ -213,31 +271,96 @@ def test_cuda_rejects_float32(fn):
     assert fn.launches == before
 
 
+# B = 37 leaves a ragged last block at every block_b the tools use (16, 20,
+# 24, 32, 64); T at both key-step counts and their edges (80 | 81)
+CUDA_SEQS = [(37, T, *((1152, 6) if i % 2 == 0 else (2304, 12)), None)
+             for i, T in enumerate((1, 77, 80, 81, 196, 197, 208))]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,C3,H,block_b", [
-    (3, 197, 1152, 6, 2), (2, 196, 2304, 12, 16), (5, 17, 1152, 6, 3), (1, 208, 1152, 6, 1)])
+    (3, 197, 1152, 6, 2), (2, 196, 2304, 12, 16), (5, 17, 1152, 6, 3),
+    (1, 208, 1152, 6, 1)] + CUDA_SEQS)
 @pytest.mark.parametrize("options", [None] + V3_OPTIONS, ids=lambda o: "v1" if o is None else
                          "-".join(f"{k}={v}" for k, v in o.items()))
 def test_cuda_kernel_matches_plain(B, T, C3, H, block_b, options):
     """V1 (options None) and V3 against their plain versions on the card.
-    Tolerance: one bf16 ulp of the output (3.9e-3 relative) plus a flipped
-    probability, as TOL."""
+    block_b None: V1 at 16, 20 and 24, V3 at its option set's own. Tolerance:
+    one bf16 ulp of the output (3.9e-3 relative) plus a flipped probability,
+    as TOL."""
     _cuda()
     gen = torch.Generator("cuda").manual_seed(0)
     qkv = torch.randn((B, T, C3), generator=gen, device="cuda").to(torch.bfloat16)
     if options is None:
-        fn = attn_kernel_experiment.make_pair_grid(H, block_b)
+        fns = [attn_kernel_experiment.make_pair_grid(H, bb)
+               for bb in ((block_b,) if block_b else (16, 20, 24))]
     else:
         opts = {k: v for k, v in options.items() if k != "block_b"}
-        fn = attn_kernel_round3.make_pair_v3(H, block_b, **opts)
-    before = fn.kernel.launches
-    out = fn(qkv)
-    ref = fn.plain(qkv)
+        fns = [attn_kernel_round3.make_pair_v3(H, block_b or options["block_b"], **opts)]
+    for fn in fns:
+        before = fn.kernel.launches
+        out = fn(qkv)
+        ref = fn.plain(qkv)
+        torch.cuda.synchronize()
+        assert fn.kernel.launches == before + 1
+        assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+        bound = TOL * max(1.0, ref.float().abs().max().item())
+        assert (out.float() - ref.float()).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,C3,H", [(37, 196, 1152, 6), (37, 197, 2304, 12),
+                                      (37, 77, 1152, 6), (5, 1, 2304, 12)])
+def test_cuda_v1_is_b1_bit_for_bit(B, T, C3, H):
+    """V1 is B1's tensor-core body at FLAGS = 0 in another item order: its
+    output equals B1's non-causal output bit for bit at every block_b, and
+    V3 without options equals both."""
+    _cuda()
+    gen = torch.Generator("cuda").manual_seed(B + T)
+    qkv = torch.randn((B, T, C3), generator=gen, device="cuda").to(torch.bfloat16)
+    b1 = fused_qkv_attention(qkv, H)
+    for bb in (1, 16, 20, 24, 64):
+        assert torch.equal(pair_grid_attention(qkv, H, bb), b1), bb
+    assert torch.equal(pair_attention(qkv, H, 16), b1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("options", [dict(exp2=True), dict(exp2=True, mxu_sum=True),
+                                     dict(exp2=True, bf16_softmax=True),
+                                     dict(exp2=True, mxu_sum=True, no_max=True)],
+                         ids=lambda o: "-".join(o))
+def test_cuda_exp2_scales_q_before_the_product(options):
+    """exp2 scales each tile of q in shared memory before its S product; on
+    q rows spread over 2^-8 .. 2^2 (scores up to ~30 in log2 units) a tile
+    that a wgmma read unscaled (a missing proxy fence or barrier) would give
+    scores 5.5x too large. Tolerance TOL, as above."""
+    _cuda()
+    gen = torch.Generator("cuda").manual_seed(11)
+    B, T, C, H = 9, 197, 768, 12
+    qkv = torch.randn((B, T, 3 * C), generator=gen, device="cuda")
+    qkv[..., :C] *= 2.0 ** torch.randint(-8, 3, (B, T, 1), generator=gen, device="cuda")
+    qkv = qkv.to(torch.bfloat16)
+    out = pair_attention(qkv, H, 4, **options)
+    ref = pair_attention_reference(qkv, H, **options)
     torch.cuda.synchronize()
-    assert fn.kernel.launches == before + 1
-    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+    assert bool(torch.isfinite(out).all())
     bound = TOL * max(1.0, ref.float().abs().max().item())
     assert (out.float() - ref.float()).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+def test_cuda_vmem_budget_below_the_bodys_need_raises():
+    """The entry's shared memory against vmem_mb: 173,088 bytes at T > 80,
+    74,784 at T <= 80; a budget below it raises before any launch."""
+    _cuda()
+    qkv = torch.zeros((2, 196, 1152), device="cuda", dtype=torch.bfloat16)
+    before = pair_attention.launches
+    with pytest.raises(ValueError, match="budget"):
+        pair_attention(qkv, 6, vmem_mb=0.16)
+    assert pair_attention.launches == before
+    pair_attention(qkv, 6, vmem_mb=0.17)
+    pair_attention(qkv[:, :80].contiguous(), 6, vmem_mb=0.08)
+    assert pair_attention.launches == before + 2
 
 
 @pytest.mark.cuda
