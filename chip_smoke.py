@@ -7,10 +7,13 @@ Drives the port's paths at the production widths (`MDTVConfig()` and
 `MDTConfig()`, seeded random weights): the MDT-V and the MDT closed-loop
 replans through `MDTVPolicy` (alias `MDTPolicy`), CALVIN's chain evaluation
 on the fake env through `evaluate_policy` and `evaluate_policy_batched`
-for both, the dual-modality train step through `train_step` at B=128 per
-stream, the frozen-tower embedding extraction through `extract_embeddings`
-and `extract_lang_goals` over a synthetic split, and the cache-mode train
-step from the rows it wrote. Prints one JSON line per phase:
+for both, the dual-modality train step of both families through
+`train_step` at B=128 per stream, the MDT validation step, checkpoints of
+both families' train states through `Checkpointer`, the evaluate CLI
+(`mdt_policy_tpu_torch.evaluate.main`) on those run directories, the
+frozen-tower embedding extraction through `extract_embeddings` and
+`extract_lang_goals` over a synthetic split, and the cache-mode train step
+from the rows it wrote. Prints one JSON line per phase:
 
   1. device   card name and power limit (nvidia-smi); TF32 off for f32
               matmuls and convolutions.
@@ -78,18 +81,39 @@ step from the rows it wrote. Prints one JSON line per phase:
               and through the plain versions: losses and grad_norm agree.
  12. train_timing  step ms p50/p90 over 10 steps after 3 warm-up steps,
               chunks/s, peak memory; then a profiled window of 2 steps.
- 13. extract  512 synthetic frames (200 px static, 84 px gripper) at batch
+ 13. mdt_train, mdt_train_e2e, mdt_train_timing, mdt_validation  the same
+              three for MDT (224 px static, 84 px gripper, 112 px
+              foresight frames, the JAX data path's sizes): every trainable
+              network moved, both ResNets among them, the CLIP towers not;
+              per step 36 B1, 77 B3 LayerNorm, 26 B3 RMSNorm and 0 B2; then
+              one validation step from the train batch, 36 B1, 77 and 26 B3
+              and 128 B2 (4 + 6 x 10 a scope) asserted, and the same step
+              through the plain versions: its metrics agree.
+ 14. checkpoint  the MDT-V and MDT train states saved by `Checkpointer` into
+              a temporary run directory each (config.yaml from `RunConfig`,
+              the step as best.json's metric), restored into fresh states
+              on the card: every tensor bit-equal, optimizer moments and
+              steps included; one more step from each side with the same
+              draws, metrics within CHECKPOINT_STEP_REL_TOL.
+ 15. evaluate_cli  `evaluate.main(["--train-folder", run, "--fake-env",
+              "--num-sequences", "4", ...])` in this process per family:
+              results.json is the never-solving scripted oracle's, env
+              steps and replans follow from it (1,440 and 144), the
+              policy's weights are the checkpoint's EMA, and the B1, B2 and
+              B3 launches are the graph phase's per replan run plus the
+              text tower's per goal.
+ 16. extract  512 synthetic frames (200 px static, 84 px gripper) at batch
               64 with one shift variant, and 512 annotation sentences,
               through the B4/B5 route: file layout, the bit-exact
               self-check, B4/B5 and B3 launches, the first batch against
               the B1 + B3 route; frames/s of both routes in turns, the
               route `extract_embeddings` takes by default and whether it
               was the faster in both pairs of turns.
- 14. cache_train  3 train steps at B=128 per stream from the written cache:
+ 17. cache_train  3 train steps at B=128 per stream from the written cache:
               no tower kernel, B3 only at the decoder and the MAP head; one
               step kernels vs plain; one validation step; step times and a
               profiled window.
- 15. attn_variants  (runs right after the kernel checks of 3) the
+ 18. attn_variants  (runs right after the kernel checks of 3) the
               attention-variant microbench: `run()` of
               `mdt_policy_tpu_torch.tools.attn_kernel_experiment` (V1 at
               block_b 16, 20, 24) and `attn_kernel_round3` (V3 under the 8
@@ -146,7 +170,9 @@ import argparse
 import concurrent.futures
 import contextlib
 import copy
+import dataclasses
 import inspect
+import io
 import json
 import os
 import subprocess
@@ -220,12 +246,15 @@ HOST_CALLS = 1000
 # B2 (name, B, H, T, D, causal): the denoisers' self-attention at the
 # replan's B=1 (MDT-V: 4-token encoder, 10-token causal decoder, D=48; MDT:
 # 3-token encoder, causal decoder, D=64), the same at the batched rollout's
-# B=32, and the four shapes of the JAX package's ops/bench_pallas.py
+# B=32 and at the MDT validation step's B=128 (TRAIN_BATCH a scope; the
+# encoder's 1024 rows of T=3 take the several-rows-a-block route), and the
+# four shapes of the JAX package's ops/bench_pallas.py
 SMALL_SEQ_SHAPES = (
     ("mdtv_enc", 1, 8, 4, 48, False), ("mdtv_dec", 1, 8, 10, 48, True),
     ("mdt_enc", 1, 8, 3, 64, False), ("mdt_dec", 1, 8, 10, 64, True),
     ("mdtv_enc_b32", 32, 8, 4, 48, False), ("mdtv_dec_b32", 32, 8, 10, 48, True),
     ("mdt_enc_b32", 32, 8, 3, 64, False), ("mdt_dec_b32", 32, 8, 10, 64, True),
+    ("mdt_enc_val", 128, 8, 3, 64, False), ("mdt_dec_val", 128, 8, 10, 64, True),
     ("bench_dec_T10", 1024, 8, 10, 48, True), ("bench_enc_T4", 1024, 8, 4, 48, False),
     ("bench_enc_T23", 1024, 8, 23, 48, False), ("bench_dec_T10_B4096", 4096, 8, 10, 48, True),
 )
@@ -255,6 +284,14 @@ ROLLOUT_CHAINS, ROLLOUT_EP_LEN, ROLLOUT_SOLVE_AT = 4, 360, 25
 BATCHED_ENVS = 32
 TRAIN_BATCH = 128  # per stream (configs/mdtv_calvin_d.yaml: batch_size)
 TRAIN_STEPS_TIMED = 10
+# Bound on the metrics of one more train step from a state and from its
+# restored copy, relative to max(1, |value|). The two states are bit-equal
+# and take the same draws, so the losses agree bit for bit; cuDNN's
+# convolution backward and the backward's scatter-adds may sum in another
+# order (f32 atomics), which moves grad_norm and the new parameters' norm by
+# f32 roundings (~1e-7 relative), 1000x under this bound.
+CHECKPOINT_STEP_REL_TOL = 1e-4
+EVAL_CHAINS = 4  # evaluate_cli: chains of the fake-env evaluation a family
 # B4/B5 (kernel, tower, B, T, C, heads or hidden width): extraction at batch
 # 64 (Voltron 128 images: both cameras in one call; CLIP vision 64) and the
 # text tower over 512 annotation sentences
@@ -525,9 +562,9 @@ def phase_kernel_b3(torch, device):
 
 def phase_kernel_b2(torch, device):
     """B2 against its plain version on the transposed (B, T, H, D) views the
-    denoisers pass, at SMALL_SEQ_SHAPES in f32 and bf16, with the times of
-    the kernel, its device kernel, the plain version and
-    F.scaled_dot_product_attention."""
+    denoisers pass, at SMALL_SEQ_SHAPES in f32 and bf16 (f32 also against
+    the plain version in float64), with the times of the kernel, its device
+    kernel, the plain version and F.scaled_dot_product_attention."""
     import torch.nn.functional as F
     from mdt_policy_tpu_torch.ops.small_seq_mha import small_seq_mha, small_seq_mha_reference
     gen = torch.Generator(device).manual_seed(2)
@@ -558,8 +595,13 @@ def phase_kernel_b2(torch, device):
                    "library_ms": event_ms(lambda: F.scaled_dot_product_attention(
                        q, k, v, is_causal=causal), iters, torch),
                    "bound_ms": bms, "bound_by": by}
+            if dtype_name == "float32":
+                f64 = small_seq_mha_reference(q.double(), k.double(), v.double(), causal)
+                row["max_abs_err_float64"] = (out.double() - f64).abs().max().item()
+                row["bound_float64"] = SMALL_SEQ_F64_TOL * max(1.0, f64.abs().max().item())
             emit(row)
-            if not err <= bound:
+            if not (err <= bound and
+                    row.get("max_abs_err_float64", 0.0) <= row.get("bound_float64", 0.0)):
                 raise AssertionError(f"B2 disagrees with its plain version: {row}")
             rows.append(row)
     return rows
@@ -687,11 +729,8 @@ def make_tokens(torch, cfg, batch: int, gen):
 def build_net(torch, cfg, device):
     """The agent of `cfg`'s family (MDTConfig: MDT, else MDT-V) with seeded
     random weights."""
-    from mdt_policy_tpu_torch.agents import (MDTAgentNet, MDTConfig, MDTVAgentNet,
-                                             init_random_)
-    net = (MDTAgentNet if isinstance(cfg, MDTConfig) else MDTVAgentNet)(cfg, device=device)
-    init_random_(net, torch.Generator().manual_seed(0))
-    return net
+    from mdt_policy_tpu_torch.agents import init_random_, make_agent_net
+    return init_random_(make_agent_net(cfg, device=device), torch.Generator().manual_seed(0))
 
 
 class Launches:
@@ -1243,15 +1282,55 @@ def expected_train_launches(cfg):
             **NO_VARIANTS}
 
 
+def expected_mdt_train_launches(cfg):
+    """Per MDT train step (both scopes): B1 in every CLIP vision block (each
+    scope: the goal frame is always encoded) and CLIP text block (lang
+    scope); B3 LayerNorm in CLIP vision's ln_pre, ln_1/ln_2, ln_post (each
+    scope) and CLIP text's ln_1/ln_2, ln_final (lang scope); B3 RMSNorm in
+    the foresight decoder's blocks and decoder_norm (each scope). No MAP
+    head, no B2 (dropout is on); the ResNets and their GroupNorms run no
+    kernel of the port."""
+    return {"fused_qkv_attention": 2 * cfg.clip_vision_layers + cfg.clip_text_layers,
+            "fused_layer_norm": 2 * (1 + 2 * cfg.clip_vision_layers + 1)
+            + 2 * cfg.clip_text_layers + 1,
+            "fused_rms_norm": 2 * (2 * cfg.gen_decoder_depth + 1), **NO_HALFBLOCKS,
+            **NO_DENOISER, **NO_VARIANTS}
+
+
+def expected_mdt_validation_launches(cfg):
+    """Per MDT validation step: the train step's tower and decoder kernels,
+    and B2 at every self-attention of the DDIM-10 denoiser in each scope
+    (no dropout in validation)."""
+    return {**expected_mdt_train_launches(cfg), "small_seq_mha": 2 * b2_per_replan(cfg)}
+
+
 def _frozen_and_trainable(torch, net):
-    from mdt_policy_tpu_torch.agents import FROZEN_PREFIXES
     frozen = {n: p.detach().clone() for n, p in net.named_parameters()
-              if n.split(".", 1)[0] in FROZEN_PREFIXES}
+              if n.split(".", 1)[0] in net.frozen_prefixes}
     trainable = {n: p.detach().clone() for n, p in net.trainable_parameters()}
     return frozen, trainable
 
 
-def phase_train(torch, net, device, launches: Launches):
+def _train_checks(torch, net, state, metrics, frozen0, trainable0):
+    """Finite metrics; every trainable network (top-level name) and the EMA
+    moved; the frozen towers did not."""
+    frozen1, trainable1 = _frozen_and_trainable(torch, net)
+    moved = {}
+    for k in trainable0:
+        top = k.split(".", 1)[0]
+        moved[top] = moved.get(top, False) or not torch.equal(trainable0[k], trainable1[k])
+    return {
+        "finite": all(np.isfinite(v) for m in metrics for v in m.values()),
+        "trainables_moved": sum(not torch.equal(trainable0[k], trainable1[k])
+                                for k in trainable0),
+        "n_trainables": len(trainable0),
+        "networks_moved": moved,
+        "ema_moved": sum(not torch.equal(trainable0[k], state.ema[k]) for k in state.ema),
+        "frozen_unchanged": all(torch.equal(frozen0[k], frozen1[k]) for k in frozen0),
+    }
+
+
+def phase_train(torch, net, device, launches: Launches, family: str = "mdtv"):
     """3 train steps at B=128 per stream, counting launches per step."""
     from mdt_policy_tpu_torch.agents import init_train_state, train_step
     cfg = net.cfg
@@ -1269,25 +1348,54 @@ def phase_train(torch, net, device, launches: Launches):
         per_step.append({k: after[k] - before[k] for k in after})
         metrics.append({k: float(v) for k, v in m.items()})
     total = launches.read()
-    frozen1, trainable1 = _frozen_and_trainable(torch, net)
-    checks = {
-        "finite": all(np.isfinite(v) for m in metrics for v in m.values()),
-        "trainables_moved": sum(not torch.equal(trainable0[k], trainable1[k])
-                                for k in trainable0),
-        "n_trainables": len(trainable0),
-        "ema_moved": sum(not torch.equal(trainable0[k], state.ema[k]) for k in state.ema),
-        "frozen_unchanged": all(torch.equal(frozen0[k], frozen1[k]) for k in frozen0),
-    }
-    expected = expected_train_launches(cfg)
-    emit({"phase": "train", "batch_per_stream": TRAIN_BATCH, "steps": 3,
+    checks = _train_checks(torch, net, state, metrics, frozen0, trainable0)
+    expected = (expected_train_launches if family == "mdtv" else expected_mdt_train_launches)(cfg)
+    phase = "train" if family == "mdtv" else f"{family}_train"
+    emit({"phase": phase, "family": family, "batch_per_stream": TRAIN_BATCH, "steps": 3,
+          "frames": {k: list(v.shape[-3:]) for k, v in batch["lang"].items()
+                     if k.startswith(("rgb", "gen"))},
           "metrics": metrics, "launches_per_step": per_step,
           "expected_per_step": expected, "launches": total, **checks})
-    if not (checks["finite"] and checks["trainables_moved"] > 0
+    if not (checks["finite"] and all(checks["networks_moved"].values())
             and checks["ema_moved"] > 0 and checks["frozen_unchanged"]):
-        raise AssertionError(f"train steps failed their checks: {checks}")
+        raise AssertionError(f"{family} train steps failed their checks: {checks}")
+    if family == "mdt" and not {"static_resnet", "gripper_resnet"} <= set(checks["networks_moved"]):
+        raise AssertionError(f"the MDT optimizer left out a ResNet: {checks}")
     if any(step != expected for step in per_step):
-        raise AssertionError(f"launches per train step {per_step}, expected {expected}")
+        raise AssertionError(f"{family} launches per train step {per_step}, expected {expected}")
     return state, batch, total
+
+
+def phase_validation(torch, net, batch, device, launches: Launches, phase: str):
+    """One validation step from the train batch, counting its launches; then
+    the same step with the same draws through the plain versions, its
+    metrics within TRAIN_E2E_REL_TOL of the kernels'."""
+    from mdt_policy_tpu_torch.agents import validation_step
+
+    def step():
+        return {k: float(v) for k, v in validation_step(
+            net, batch, generator=torch.Generator(device).manual_seed(13)).items()}
+
+    launches.reset()
+    val = step()
+    torch.cuda.synchronize()
+    got = launches.read()
+    with plain_kernels():
+        plain = step()
+    if launches.read() != got:
+        raise AssertionError("the plain validation step launched a kernel")
+    rel = {k: abs(val[k] - plain[k]) / max(1.0, abs(plain[k])) for k in val}
+    expected = expected_mdt_validation_launches(net.cfg)
+    emit({"phase": phase, "metrics": val, "plain": plain, "max_rel_err": max(rel.values()),
+          "worst": max(rel, key=rel.get), "bound": TRAIN_E2E_REL_TOL,
+          "launches": got, "expected": expected})
+    if not all(np.isfinite(v) for v in val.values()):
+        raise AssertionError(f"{phase} not finite: {val}")
+    if got != expected:
+        raise AssertionError(f"{phase} launches {got}, expected {expected}")
+    if not max(rel.values()) <= TRAIN_E2E_REL_TOL:
+        raise AssertionError(f"kernel and plain validation steps disagree: {rel}")
+    return got
 
 
 def phase_train_e2e(torch, state, batch, device, launches: Launches,
@@ -1390,6 +1498,168 @@ def phase_train_timing(torch, state, batch, device, smi, phase: str = "train_tim
     prof = profile_calls(torch, lambda: train_step(state, batch, generator=gen), 2)
     emit({"phase": phase.replace("timing", "profile"), **prof, "card": smi})
     return row
+
+
+def _state_tensors(state):
+    """Every tensor of a train state by name: the net's state_dict, the EMA,
+    the optimizer's per-parameter state (step and moments)."""
+    out = {f"params/{k}": v for k, v in state.net.state_dict().items()}
+    out.update({f"ema/{k}": v for k, v in state.ema.items()})
+    names = {id(p): n for n, p in state.net.trainable_parameters()}
+    for p, s in state.optimizer.state.items():
+        out.update({f"opt/{names[id(p)]}/{k}": v for k, v in s.items()})
+    return out
+
+
+def phase_checkpoint(torch, states, device, smi, root):
+    """Per family, the train phase's state saved by `Checkpointer` into a
+    run directory under `root` (a `config.yaml` from `RunConfig`, the step
+    as the metric of `best.json`), restored into a fresh state on the card
+    (every tensor bit-equal, optimizer moments and step included), then one
+    more train step from the original and from the restored state with the
+    same draws (max relative |delta| of the metrics). Returns {family:
+    (run directory, host copies of the saved EMA and parameters)}."""
+    import yaml
+    from mdt_policy_tpu_torch.agents import (init_train_state, make_agent_net, make_draws,
+                                             train_step)
+    from mdt_policy_tpu_torch.training import RunConfig
+    from mdt_policy_tpu_torch.utils.checkpoint import STATE_FILE, Checkpointer
+    runs = {}
+    for family, state in states.items():
+        cfg = state.net.cfg
+        run = os.path.join(root, family)
+        os.makedirs(run)
+        default = type(cfg)()  # the snapshot names the fields that differ
+        overrides = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+                     if getattr(cfg, f.name) != getattr(default, f.name)}
+        with open(os.path.join(run, "config.yaml"), "w") as f:
+            f.write(yaml.safe_dump(dataclasses.asdict(
+                RunConfig(agent=family, agent_overrides=overrides))))
+        ck = Checkpointer(os.path.join(run, "checkpoints"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ck.save(state, metric=float(state.step), wait=True)
+        save_s = time.perf_counter() - t0
+        saved_step = state.step
+        host = lambda d: {k: v.detach().to("cpu", copy=True) for k, v in d.items()}
+        saved = {"ema": host(state.ema), "params": host(state.net.state_dict())}
+        fresh = init_train_state(make_agent_net(cfg, device=device))
+        t0 = time.perf_counter()
+        ck.restore(fresh, step=ck.best_step())
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        steps_equal = fresh.step == saved_step
+        a, b = _state_tensors(state), _state_tensors(fresh)
+        unequal = sorted(set(a) ^ set(b)) + [
+            k for k in sorted(set(a) & set(b))
+            if not (a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]))]
+        groups_equal = state.optimizer.state_dict()["param_groups"] == \
+            fresh.optimizer.state_dict()["param_groups"]
+        batch = make_train_batch(torch, cfg, TRAIN_BATCH, device)
+
+        def step(s):
+            gen = torch.Generator(device).manual_seed(21)
+            draws = {k: make_draws(cfg, TRAIN_BATCH, gen) for k in sorted(batch)}
+            return {k: float(v) for k, v in train_step(s, batch, draws=draws).items()}
+        m_orig, m_restored = step(state), step(fresh)
+        rel = {k: abs(m_orig[k] - m_restored[k]) / max(1.0, abs(m_orig[k])) for k in m_orig}
+        row = {"phase": "checkpoint", "family": family, "step": saved_step,
+               "tensors": len(a), "unequal": unequal[:8], "param_groups_equal": groups_equal,
+               "file_bytes": os.path.getsize(os.path.join(path, STATE_FILE)),
+               "save_s": save_s, "restore_s": restore_s,
+               "best_step": ck.best_step(),
+               "next_step_max_rel_err": max(rel.values()), "worst": max(rel, key=rel.get),
+               "bit_equal_metrics": sorted(k for k in rel if rel[k] == 0.0),
+               "bound": CHECKPOINT_STEP_REL_TOL, "card": smi}
+        emit(row)
+        if unequal or not groups_equal or not steps_equal:
+            raise AssertionError(f"{family} restore is not bit-equal: {row}")
+        if not row["next_step_max_rel_err"] <= CHECKPOINT_STEP_REL_TOL:
+            raise AssertionError(f"{family} step after restore disagrees: {row}")
+        runs[family] = (run, saved)
+        del fresh, batch, a, b
+        torch.cuda.empty_cache()
+    return runs
+
+
+def eval_results(chains: int):
+    """results.json of `evaluate --fake-env`: its scripted oracle never
+    solves, so every chain fails its first task (print_and_save's layout)."""
+    from mdt_policy_tpu_torch.evaluation import get_sequences
+    firsts = [chain[0] for _, chain in get_sequences(chains)]
+    return {"0": {"avg_seq_len": 0.0, "chain_sr": {str(i): 0.0 for i in range(1, 6)},
+                  "task_info": {t: {"success": 0, "total": firsts.count(t)} for t in firsts}}}
+
+
+def phase_evaluate_cli(torch, runs, device, launches: Launches, smi):
+    """`evaluate.main([--train-folder RUN, --fake-env, --num-sequences 4])`
+    in this process on each family's run directory: results.json is the
+    scripted oracle's (every chain fails its first task after a whole
+    episode), env steps and replans follow from that rule, the policy's
+    weights are the checkpoint's EMA (and the frozen towers' own), and the
+    kernels launched are the graph phase's per replan run (each replan and
+    each warm-up call before the capture) plus the text tower's per goal
+    encode."""
+    from mdt_policy_tpu_torch import evaluate
+    from mdt_policy_tpu_torch.agents import MDTAgentNet, MDTVAgentNet, MDTVPolicy
+    from mdt_policy_tpu_torch.evaluation import FakeEnv
+    launches.reset()
+    for family, (run, saved) in runs.items():
+        before = launches.read()
+        built, printed = [], io.StringIO()
+
+        def build(*args, _real=evaluate.build_policy, **kwargs):
+            built.append(_real(*args, **kwargs))
+            return built[-1]
+        net_cls = MDTAgentNet if family == "mdt" else MDTVAgentNet
+        watched = [mock.patch.object(cls, name, autospec=True, side_effect=getattr(cls, name))
+                   for cls, name in ((MDTVPolicy, "plan"), (MDTVPolicy, "_capture"),
+                                     (net_cls, "encode_language_goal"), (FakeEnv, "step"))]
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(evaluate, "build_policy", build))
+            plan, capture, encode, env_step = [stack.enter_context(w) for w in watched]
+            stack.enter_context(contextlib.redirect_stdout(printed))
+            t0 = time.perf_counter()
+            evaluate.main(["--train-folder", run, "--fake-env", "--num-sequences",
+                           str(EVAL_CHAINS), "--device", str(device)])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        after = launches.read()
+        got = {k: after[k] - before[k] for k in after}
+        policy, cfg, _ = built[0]
+        net = policy.inner.net
+        weights_equal = all(torch.equal(v.cpu(), saved["ema"].get(k, saved["params"][k]))
+                            for k, v in net.state_dict().items())
+        with open(os.path.join(run, "evaluation", "results.json")) as f:
+            results = json.load(f)
+        want_steps, want_plans = expected_rollout([0] * EVAL_CHAINS, cfg.multistep)
+        first, cached = expected_replan_launches(cfg, family)
+        replan_runs = plan.call_count + MDTVPolicy.WARMUP_CALLS * capture.call_count
+        want = {k: replan_runs * cached[k] + encode.call_count * (first[k] - cached[k])
+                for k in cached}
+        row = {"phase": "evaluate_cli", "family": family, "chains": EVAL_CHAINS,
+               "results": results, "printed": json.loads(printed.getvalue()),
+               "env_steps": env_step.call_count, "replans": plan.call_count,
+               "captures": capture.call_count, "goal_encodes": encode.call_count,
+               "cuda_graph": policy.inner.cuda_graph, "ema_weights": weights_equal,
+               "launches": got, "expected_launches": want,
+               "per_replan_run": cached, "seconds": seconds,
+               "env_steps_per_s": env_step.call_count / seconds,
+               "replans_per_s": plan.call_count / seconds, "card": smi}
+        emit(row)
+        if not (results == eval_results(EVAL_CHAINS)
+                and row["printed"] == {"avg_seq_len": 0.0,
+                                       "chain_sr": results["0"]["chain_sr"]}
+                and env_step.call_count == sum(want_steps)
+                and plan.call_count == sum(want_plans)
+                and encode.call_count == EVAL_CHAINS and weights_equal):
+            raise AssertionError(f"{family} evaluate CLI disagrees with the oracle's rule "
+                                 f"or the checkpoint: {row}")
+        if got != want:
+            raise AssertionError(f"{family} evaluate CLI launches {got}, expected {want}")
+        del built, policy, net
+        torch.cuda.empty_cache()
+    return launches.read()
 
 
 def halfblock_inputs(torch, kernel, tower, B, T, C, n, device, seed=0):
@@ -1785,20 +2055,12 @@ def phase_cache_train(torch, net, device, launches: Launches, smi, out):
         per_step.append({k: after[k] - before[k] for k in after})
         metrics.append({k: float(v) for k, v in m.items()})
     total = launches.read()
-    frozen1, trainable1 = _frozen_and_trainable(torch, net)
-    checks = {
-        "finite": all(np.isfinite(v) for m in metrics for v in m.values()),
-        "trainables_moved": sum(not torch.equal(trainable0[k], trainable1[k])
-                                for k in trainable0),
-        "n_trainables": len(trainable0),
-        "ema_moved": sum(not torch.equal(trainable0[k], state.ema[k]) for k in state.ema),
-        "frozen_unchanged": all(torch.equal(frozen0[k], frozen1[k]) for k in frozen0),
-    }
+    checks = _train_checks(torch, net, state, metrics, frozen0, trainable0)
     expected = expected_cache_train_launches(cfg)
     emit({"phase": "cache_train", "batch_per_stream": TRAIN_BATCH, "steps": 3,
           "metrics": metrics, "launches_per_step": per_step,
           "expected_per_step": expected, "launches": total, **checks})
-    if not (checks["finite"] and checks["trainables_moved"] > 0
+    if not (checks["finite"] and all(checks["networks_moved"].values())
             and checks["ema_moved"] > 0 and checks["frozen_unchanged"]):
         raise AssertionError(f"cache-mode steps failed their checks: {checks}")
     if any(step != expected for step in per_step):
@@ -1854,12 +2116,25 @@ def main() -> int:
     phase_timing(torch, mdt, device, smi, "mdt")
     paths["rollout"], _ = phase_rollout(torch, {"mdtv": net, "mdt": mdt}, device,
                                         launches, smi)
-    del mdt
     torch.cuda.empty_cache()
     state, batch, paths["train"] = phase_train(torch, net, device, launches)
     phase_train_e2e(torch, state, batch, device, launches)
     phase_train_timing(torch, state, batch, device, smi)
-    del state, batch
+    del batch
+    torch.cuda.empty_cache()
+    mdt_state, batch, paths["mdt_train"] = phase_train(torch, mdt, device, launches, "mdt")
+    phase_train_e2e(torch, mdt_state, batch, device, launches, phase="mdt_train_e2e")
+    phase_train_timing(torch, mdt_state, batch, device, smi, phase="mdt_train_timing")
+    paths["mdt_validation"] = phase_validation(torch, mdt, batch, device, launches,
+                                               "mdt_validation")
+    del batch
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        runs = phase_checkpoint(torch, {"mdtv": state, "mdt": mdt_state}, device, smi, root)
+        del state, mdt_state, mdt
+        torch.cuda.empty_cache()
+        paths["evaluate_cli"] = phase_evaluate_cli(torch, runs, device, launches, smi)
+    del runs
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         paths["extract"] = phase_extract(torch, net, device, launches, smi, root)
@@ -1878,19 +2153,21 @@ def summary(rows, paths):
     kernels and the microbench's V1 and V3, f32 for B2, whose path is the
     f32 denoiser), with its launches on each path; fails if a kernel was not
     launched on one of the paths it belongs to."""
-    replans = ("replan", "mdt_replan", "rollout")
+    replans = ("replan", "mdt_replan", "rollout", "evaluate_cli")
     entries = []
     for name, source, replaces, kind, shape, dtype, own in (
             ("fused_qkv_attention", "fused_qkv_attention.cu",
              "mdt_policy_tpu/ops/fused_qkv_attention.py:124", "b1", "voltron_train",
-             "bfloat16", replans + ("train",)),
+             "bfloat16", replans + ("train", "mdt_train", "mdt_validation")),
             ("fused_layer_norm", "fused_norm.cu", "mdt_policy_tpu/ops/fused_norm.py:134",
-             "b3", "clip_vision_train", "bfloat16", replans + ("train", "extract")),
+             "b3", "clip_vision_train", "bfloat16",
+             replans + ("train", "mdt_train", "mdt_validation", "extract")),
             ("fused_rms_norm", "fused_norm.cu", "mdt_policy_tpu/ops/fused_norm.py:159",
-             "b3", "voltron_train", "bfloat16", ("replan", "rollout", "train", "cache_train")),
+             "b3", "voltron_train", "bfloat16", ("replan", "rollout", "evaluate_cli", "train",
+                                                 "mdt_train", "mdt_validation", "cache_train")),
             ("small_seq_mha", "small_seq_mha.cu",
              "mdt_policy_tpu/ops/pallas_attention.py:77", "b2", "mdtv_dec_b32", "float32",
-             replans),
+             replans + ("mdt_validation",)),
             ("attention_halfblock", "attention_halfblock.cu",
              "mdt_policy_tpu/ops/attention_halfblock.py:145", "hb", "voltron", "bfloat16",
              ("extract",)),

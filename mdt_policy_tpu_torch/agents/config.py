@@ -6,7 +6,9 @@ Fields that only the TPU build reads (`scan_tower_layers`,
 `voltron_blocks_2d`, `remat_perceiver`, `fused_tower_attention`) and
 `fuse_camera_batch` (always on in the port) are kept as inert fields: the
 port accepts them and ignores them. `MDTVAgentNet` rejects values of the
-other fields that the port does not implement yet.
+other fields that the port does not implement yet. `filter_retired_overrides`
+drops the keys of the JAX package's retired experiments from a run
+snapshot.
 """
 
 from __future__ import annotations
@@ -141,3 +143,23 @@ class MDTVConfig:
     fused_tower_attention: str = "auto"
     scan_tower_layers: bool = False
     voltron_blocks_2d: bool = False
+
+
+# Config fields of the JAX package's measured-and-rejected experiments
+# (`mdt_policy_tpu/agents/config.py:200-224`). The fields themselves are not
+# ported (ROADMAP, "Do not port these"); run snapshots that carry them still
+# load, with the keys dropped.
+RETIRED_OVERRIDES = ("mxu_tower_norm", "perceiver_head_slice",
+                     "fuse_scope_towers")
+
+
+def filter_retired_overrides(overrides: dict) -> dict:
+    """Drop retired experiment keys from a run snapshot's agent_overrides
+    (with a log) so historical run dirs keep re-hydrating."""
+    import logging
+    retired = {k: v for k, v in overrides.items() if k in RETIRED_OVERRIDES}
+    if retired:
+        logging.getLogger(__name__).warning(
+            "dropping retired agent overrides %s (rejected experiments; "
+            "see agents/config.py RETIRED_OVERRIDES)", retired)
+    return {k: v for k, v in overrides.items() if k not in RETIRED_OVERRIDES}

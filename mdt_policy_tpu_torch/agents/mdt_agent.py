@@ -14,8 +14,12 @@ another one (`device="cpu"`).
 The serving methods are those of `MDTVAgentNet` (`perceive`,
 `encode_visual_goal`, `encode_language_goal`, `encode_context`,
 `decode_actions`), so `denoise_actions` and `MDTVPolicy` (alias
-`MDTPolicy`) serve either net. The losses and the train step are not ported
-yet (ROADMAP queue A).
+`MDTPolicy`) serve either net. So is `forward`, the per-scope losses of
+the JAX `MDTAgentNet.__call__`, with MDT's `contrastive_context`; the MDT-V
+module's `init_train_state`, `train_step` and `validation_step` train and
+validate either net: the trainables are the parameters outside
+`frozen_prefixes`, here both ResNets among them. MDT has no cache mode: a
+batch of cached tower outputs raises.
 """
 
 from __future__ import annotations
@@ -27,15 +31,16 @@ from typing import Dict
 import torch
 import torch.nn as nn
 
+from ..diffusion import make_sample_density
 from ..models.blocks import SingleTokenProjection
 from ..models.clip import CLIPTextTower, CLIPVisionTower
 from ..models.masked_decoder import MaskedTransformerImgDecoder
 from ..models.mdt_transformer import MDTTransformer
 from ..models.resnet import BesoResNetEncoder
 from .config import MDTVConfig
-from .mdtv_agent import MDTVAgentNet, check_ported, default_device
+from .mdtv_agent import Batch, MDTVAgentNet, check_ported, default_device
 
-__all__ = ["MDT_FROZEN_PREFIXES", "MDTAgentNet", "MDTConfig"]
+__all__ = ["MDT_FROZEN_PREFIXES", "MDTAgentNet", "MDTConfig", "make_agent_net"]
 
 # MDT freezes only the CLIP goal towers; both ResNets train (JAX mdt_agent.py:61)
 MDT_FROZEN_PREFIXES = ("visual_goal", "language_goal")
@@ -55,6 +60,8 @@ class MDTConfig(MDTVConfig):
 
 class MDTAgentNet(nn.Module):
     """The MDT networks, built on `device` (default: CUDA)."""
+
+    frozen_prefixes = MDT_FROZEN_PREFIXES
 
     def __init__(self, cfg: MDTConfig, device=None):
         super().__init__()
@@ -85,8 +92,10 @@ class MDTAgentNet(nn.Module):
         # ref mdt_agent.py:112-117: token 1 of the 3 context tokens
         self.clip_proj = SingleTokenProjection(1)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
-        for name in MDT_FROZEN_PREFIXES:
+        for name in self.frozen_prefixes:
             getattr(self, name).requires_grad_(False)
+        self.sample_density = make_sample_density(
+            c.sigma_sample_density_type, c.sigma_data, c.sigma_min, c.sigma_max)
         self.to(device=device)
         self.eval()
 
@@ -106,10 +115,48 @@ class MDTAgentNet(nn.Module):
 
     perceive = embed_visual_obs
 
-    # the goal towers' entry points and the score model's are the MDT-V
-    # agent's: the same attribute names, the same calls
+    # the goal towers' entry points, the score model's, the contrastive
+    # loss and the trainables are the MDT-V agent's: the same attribute
+    # names, the same calls
+    trainable_parameters = MDTVAgentNet.trainable_parameters
     _to_vit_size = MDTVAgentNet._to_vit_size
     encode_visual_goal = MDTVAgentNet.encode_visual_goal
     encode_language_goal = MDTVAgentNet.encode_language_goal
     encode_context = MDTVAgentNet.encode_context
     decode_actions = MDTVAgentNet.decode_actions
+    clip_auxiliary_loss = MDTVAgentNet.clip_auxiliary_loss  # JAX :211-220
+
+    def encode_towers(self, batch: Batch, modality: str):
+        """(perceptual_emb, image_latent_goal, latent_goal) of one scope
+        from its frames (JAX __call__, :161-175): the ResNet tokens of the
+        observation frames, the CLIP vision embedding of the goal frame,
+        and in the lang scope the CLIP text embedding of the goal tokens.
+        MDT trains its ResNets, so their outputs cannot be cached: a batch
+        of cached tower outputs raises."""
+        cached = sorted({"voltron_tokens", "image_latent_goal", "lang_latent_goal"} & set(batch))
+        if cached:
+            raise ValueError(f"the MDT agent has no cache mode; the batch carries {cached}")
+        perceptual_emb = self.embed_visual_obs(batch["rgb_static"][:, :-1],
+                                               batch["rgb_gripper"][:, :-1])
+        image_latent_goal = self.encode_visual_goal(batch["rgb_static"][:, -1])
+        latent_goal = self.encode_language_goal(batch["lang_tokens"]) \
+            if modality == "lang" else image_latent_goal
+        return perceptual_emb, image_latent_goal, latent_goal
+
+    # ---- losses (one modality scope): MDT-V's, with MDT's contrastive encode
+
+    forward = MDTVAgentNet.forward  # JAX `MDTAgentNet.__call__`, mdt_agent.py:156-209
+
+    def contrastive_context(self, perceptual_emb, image_latent_goal, generator=None):
+        """The image goal's context for the contrastive loss (JAX :195-203):
+        a second encode in the lang modality with `modality_embed=True`,
+        which takes `lang_emb`; the main path embeds every goal with
+        `goal_emb`."""
+        return self.inner.encode(perceptual_emb, image_latent_goal, modality="lang",
+                                 modality_embed=True, generator=generator)
+
+
+def make_agent_net(cfg: MDTVConfig, device=None) -> nn.Module:
+    """The net of `cfg`'s family on `device` (default: CUDA): an
+    `MDTAgentNet` for an `MDTConfig`, else an `MDTVAgentNet`."""
+    return (MDTAgentNet if isinstance(cfg, MDTConfig) else MDTVAgentNet)(cfg, device=device)

@@ -94,22 +94,25 @@ def check_ported(cfg: MDTVConfig) -> None:
     if unported:
         raise NotImplementedError(
             f"config values not ported yet: {unported} (ported: the "
-            f"production values {_PORTED}; ROADMAP queue A item 18)")
+            f"production values {_PORTED}; ROADMAP queue A, 'The rest, behind "
+            "the production defaults')")
 
 
 def default_device(device) -> torch.device:
-    """The CUDA device unless the caller names one; never a silent CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    """The CUDA device unless the caller names one; never a silent CPU: a
+    CUDA device, named or not, raises when there is none."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("the agent nets build on the CUDA device by default "
                            "and no CUDA device is available; pass device='cpu' "
                            "to build on the CPU")
-    return torch.device("cuda")
+    return device
 
 
 class MDTVAgentNet(nn.Module):
     """The MDT-V networks, built on `device` (default: CUDA)."""
+
+    frozen_prefixes = FROZEN_PREFIXES
 
     def __init__(self, cfg: MDTVConfig, device=None):
         super().__init__()
@@ -149,7 +152,7 @@ class MDTVAgentNet(nn.Module):
         # style 'map' over the whole context, token_dim=latent_dim (JAX :159-163)
         self.clip_proj = ClipStyleProjection(token_dim=c.latent_dim)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
-        for name in FROZEN_PREFIXES:
+        for name in self.frozen_prefixes:
             getattr(self, name).requires_grad_(False)
         self.sample_density = make_sample_density(
             c.sigma_sample_density_type, c.sigma_data, c.sigma_min, c.sigma_max)
@@ -161,9 +164,10 @@ class MDTVAgentNet(nn.Module):
         return self.inner.tok_emb.weight.device
 
     def trainable_parameters(self) -> List[Tuple[str, nn.Parameter]]:
-        """(name, parameter) of every network outside FROZEN_PREFIXES."""
+        """(name, parameter) of every network outside the net's
+        `frozen_prefixes` (JAX `split_params(params, net.frozen_prefixes)`)."""
         return [(n, p) for n, p in self.named_parameters()
-                if n.split(".", 1)[0] not in FROZEN_PREFIXES]
+                if n.split(".", 1)[0] not in self.frozen_prefixes]
 
     # ---- encoders ------------------------------------------------------------
 
@@ -253,7 +257,8 @@ class MDTVAgentNet(nn.Module):
 
     def forward(self, batch: Batch, modality: str, *, train: bool = True,
                 draws: Mapping) -> Dict[str, torch.Tensor]:
-        """Per-scope losses (JAX `__call__`, mdtv_agent.py:259-348).
+        """Per-scope losses (JAX `__call__`, mdtv_agent.py:259-348; the MDT
+        net's too, through its own `encode_towers` and `contrastive_context`).
 
         batch: rgb_static / rgb_gripper (B, T+1, H, W, 3), the last frame
         the goal frame, or the cache's voltron_tokens (B, 2N, D) and
@@ -290,11 +295,10 @@ class MDTVAgentNet(nn.Module):
         recon, mask, _, _ = self.gen_img(context, goal_imgs, draws["mask"])
         img_gen_loss = self.gen_img.compute_loss(goal_imgs, recon, mask)
 
-        # contrastive latent alignment, lang scope only (JAX :332-340): the
-        # image goal goes through the language projection, as in JAX
+        # contrastive latent alignment, lang scope only (JAX :332-340)
         if modality == "lang":
-            vis_context = self.encode_context(perceptual_emb, image_latent_goal,
-                                              modality="lang", generator=generator)
+            vis_context = self.contrastive_context(perceptual_emb, image_latent_goal,
+                                                   generator)
             cont_loss = self.clip_auxiliary_loss(self.clip_proj(vis_context),
                                                  self.clip_proj(context))
         else:
@@ -303,6 +307,13 @@ class MDTVAgentNet(nn.Module):
         total = action_loss + c.masked_beta * img_gen_loss + c.cont_alpha * cont_loss
         return {"action_loss": action_loss, "img_gen_loss": img_gen_loss,
                 "cont_loss": cont_loss, "total_loss": total}
+
+    def contrastive_context(self, perceptual_emb, image_latent_goal,
+                            generator: Optional[torch.Generator] = None):
+        """The image goal's context for the contrastive loss (JAX
+        :332-340): the encode of the lang modality, as in JAX."""
+        return self.encode_context(perceptual_emb, image_latent_goal, modality="lang",
+                                   generator=generator)
 
     def clip_auxiliary_loss(self, image_features: torch.Tensor,
                             lang_features: torch.Tensor) -> torch.Tensor:
@@ -414,22 +425,24 @@ def denoise_actions(net: nn.Module, perceptual_emb: Dict[str, torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
-# Train state and steps
+# Train state and steps (either net: the trainables are the parameters
+# outside the net's `frozen_prefixes`)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class TrainState:
-    """The net, its optimizer over the trainables, the EMA of the
-    trainables (the frozen towers are their own EMA) and the step counter."""
-    net: MDTVAgentNet
+    """The net (an `MDTVAgentNet` or an `MDTAgentNet`), its optimizer over
+    the trainables, the EMA of the trainables (the frozen towers are their
+    own EMA) and the step counter."""
+    net: nn.Module
     optimizer: torch.optim.Optimizer
     ema: Dict[str, torch.Tensor]
     step: int = 0
 
 
-def make_optimizer(net: MDTVAgentNet) -> torch.optim.AdamW:
+def make_optimizer(net: nn.Module) -> torch.optim.AdamW:
     """One AdamW group over every trainable parameter (JAX make_optimizer,
-    :376-386): betas and weight decay from the config, eps 1e-8. Torch's
+    :376-386; the MDT agent's, mdt_agent.py:223-228, is the same): betas and weight decay from the config, eps 1e-8. Torch's
     decoupled decay, p <- p - lr*wd*p, is optax.adamw's term for term. The
     learning rate is set by `train_step` from the tri-stage schedule."""
     c = net.cfg.optimizer
@@ -438,7 +451,7 @@ def make_optimizer(net: MDTVAgentNet) -> torch.optim.AdamW:
                              weight_decay=c.transformer_weight_decay)
 
 
-def init_train_state(net: MDTVAgentNet) -> TrainState:
+def init_train_state(net: nn.Module) -> TrainState:
     """Step 0: a fresh optimizer and an EMA equal to the trainables, on the
     net's device."""
     return TrainState(net=net, optimizer=make_optimizer(net),
@@ -507,7 +520,7 @@ def train_step(state: TrainState, batch: Mapping[str, Batch], *,
 
 
 @torch.no_grad()
-def validation_step(net: MDTVAgentNet, batch: Mapping[str, Batch], *,
+def validation_step(net: nn.Module, batch: Mapping[str, Batch], *,
                     generator: Optional[torch.Generator] = None,
                     draws: Optional[Mapping[str, Mapping]] = None) -> Dict:
     """Validation metrics per scope (JAX validation_step, :581-624): the

@@ -51,6 +51,6 @@ def make_sample_density(density_type: str, sigma_data: float, sigma_min: float,
                                  scale=0.5, min_value=sigma_min, max_value=sigma_max)
     if density_type in _UNPORTED:
         raise NotImplementedError(
-            f"sigma density {density_type!r} is not ported yet (ROADMAP queue A "
-            "item 18); the port has 'loglogistic'")
+            f"sigma density {density_type!r} is not ported yet (ROADMAP queue A, "
+            "'The rest, behind the production defaults'); the port has 'loglogistic'")
     raise ValueError(f"Unknown sample density type: {density_type!r}")

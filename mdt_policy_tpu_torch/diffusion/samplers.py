@@ -57,6 +57,6 @@ def sample_loop(sampler_type: str, denoise_fn: DenoiseFn, x: torch.Tensor,
         return sample_ddim(denoise_fn, x, s)
     if sampler_type in SAMPLER_NAMES:
         raise NotImplementedError(
-            f"sampler {sampler_type!r} is not ported yet (ROADMAP queue A "
-            "item 18); the port has 'ddim'")
+            f"sampler {sampler_type!r} is not ported yet (ROADMAP queue A, "
+            "'The rest, behind the production defaults'); the port has 'ddim'")
     raise ValueError(f"Unknown sampler type: {sampler_type!r}")

@@ -320,7 +320,8 @@ class MAPBlock(nn.Module):
 class ClipStyleProjection(nn.Module):
     """Latent -> contrastive-embedding head (JAX blocks.py:463-493) in the
     MDT-V style, "map": one MAPBlock latent, 8 heads, over the whole context.
-    The other styles are not ported (ROADMAP queue A item 18)."""
+    The other styles are not ported (ROADMAP queue A, "The rest, behind
+    the production defaults")."""
 
     def __init__(self, token_dim: int = 384):
         super().__init__()

@@ -9,8 +9,9 @@
 `encode` and `decode` are separate so the sampler computes the context once
 per replan. Only the production layout is ported: AdaLN decoder, MLP goal
 projections and a separate language-goal projection (`lang_emb`); the agent
-rejects other configs (ROADMAP queue A item 18). Dropout (`attn_pdrop`,
-`resid_pdrop`, `mlp_pdrop`) runs when `encode`/`decode` get a generator.
+rejects other configs (ROADMAP queue A, "The rest, behind the production
+defaults"). Dropout (`attn_pdrop`, `resid_pdrop`, `mlp_pdrop`) runs when
+`encode`/`decode` get a generator.
 """
 
 from __future__ import annotations

@@ -22,6 +22,9 @@ and `from_jax` of the whole agent tree is the inverse of port_mdtv_agent
 also takes the JAX `MDTAgentNet` tree (ResNet encoders, `MDTTransformer`,
 the parameter-free single-token `clip_proj`).
 
+`state_from_jax` builds the port's whole `TrainState` (parameters, EMA,
+AdamW moments and step) from the numpy trees of a JAX `TrainState`.
+
 Conventions: a flax Dense kernel (in, out) is a torch Linear weight
 (out, in); a flax Conv kernel (H, W, I, O) is a torch Conv2d weight
 (O, I, H, W); flax LayerNorm scale/bias are weight/bias; a biasless
@@ -36,7 +39,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["from_jax", "voltron_vit_from_jax", "perceiver_from_jax",
+__all__ = ["from_jax", "state_from_jax", "voltron_vit_from_jax", "perceiver_from_jax",
            "clip_text_from_jax", "clip_vision_from_jax",
            "mdtv_transformer_from_jax", "mdt_transformer_from_jax",
            "resnet18_gn_from_jax", "masked_decoder_from_jax",
@@ -273,3 +276,39 @@ def from_jax(params: Mapping) -> StateDict:
     if "logit_scale" in params:
         sd["logit_scale"] = _t(params["logit_scale"]).reshape(())
     return sd
+
+
+def state_from_jax(net, tree: Mapping):
+    """The port's `TrainState` of `net` (an `MDTVAgentNet` or `MDTAgentNet`
+    of the same config) from the numpy trees of a JAX `TrainState`, as the
+    JAX `Checkpointer` restores them into a template: `params`,
+    `ema_params`, `opt_state` (optax `adamw`'s tuple of states) and `step`.
+
+    The parameters load into `net`. Over the trainables, matched by name
+    through `net.trainable_parameters()`: the EMA from `ema_params` (whose
+    frozen towers, their own EMA, are dropped), and AdamW's `exp_avg`,
+    `exp_avg_sq` and `step` from optax's `mu`, `nu` and `count`. optax
+    corrects the bias with the count after its increment and torch with
+    `step` after its increment, so the next `train_step` takes optax's
+    (count + 1)-th update; its learning rate is the schedule's at the
+    JAX `step`."""
+    from ..agents.mdtv_agent import init_train_state
+    net.load_state_dict(from_jax(tree["params"]), strict=True)
+    state = init_train_state(net)
+    ema = from_jax(tree["ema_params"])
+    for name, value in state.ema.items():
+        value.copy_(ema[name])
+    adam = next((s for s in tree["opt_state"] if hasattr(s, "mu")), None)
+    if adam is None:
+        raise ValueError("opt_state holds no optax ScaleByAdamState (count, mu, nu)")
+    count, mu, nu = adam.count, from_jax(adam.mu), from_jax(adam.nu)
+    trainable = dict(net.trainable_parameters())
+    if set(mu) != set(trainable) or set(nu) != set(trainable):
+        raise ValueError(f"the Adam moments cover {sorted(set(mu) ^ set(trainable))[:8]} "
+                         "differently from the net's trainables")
+    for name, p in trainable.items():
+        # torch's AdamW keeps `step` as a float32 scalar on the host
+        state.optimizer.state[p] = {"step": torch.tensor(float(count)),
+                                    "exp_avg": mu[name].to(p), "exp_avg_sq": nu[name].to(p)}
+    state.step = int(tree["step"])
+    return state

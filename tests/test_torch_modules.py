@@ -364,7 +364,7 @@ def test_ddim_matches_jax_and_ends_finite():
 
 
 def test_other_samplers_not_ported():
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(NotImplementedError, match="The rest, behind the production defaults"):
         samplers.sample_loop("heun", None, torch.zeros(1, 10, 7), [1.0, 0.0])
     with pytest.raises(ValueError):
         samplers.sample_loop("nope", None, torch.zeros(1, 10, 7), [1.0, 0.0])

@@ -210,8 +210,9 @@ def test_denoise_actions_needs_a_generator_or_noise():
 
 def test_port_imports_without_jax():
     """Every module of the port, and chip_smoke.py, imports without pulling
-    in JAX, the JAX package or the repository's JAX `tools/`; and no import
-    statement anywhere in them, function-level ones included, names any."""
+    in JAX, flax, optax, orbax, the JAX package or the repository's JAX
+    `tools/`; and no import statement anywhere in them, function-level ones
+    included, names any."""
     code = ("import pkgutil, sys\n"
             "import mdt_policy_tpu_torch as pkg\n"
             "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'mdt_policy_tpu_torch.')]\n"
@@ -224,12 +225,13 @@ def test_port_imports_without_jax():
             "'evaluation.annotations', 'evaluation.fake_env', 'evaluation.rollout', "
             "'evaluation.policy_adapter', 'evaluation.batched_rollout', "
             "'ops.pair_attention', 'tools.perf_probe', 'tools.attn_kernel_experiment', "
-            "'tools.attn_kernel_round3'):\n"
+            "'tools.attn_kernel_round3', 'training', 'evaluate', 'utils.checkpoint', "
+            "'utils.from_jax', 'evaluation.env_adapter'):\n"
             "    assert 'mdt_policy_tpu_torch.' + needed in names, needed\n"
             "for name in names + ['chip_smoke']:\n"
             "    __import__(name)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'mdt_policy_tpu', 'tools')]\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'mdt_policy_tpu', 'tools')]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120, cwd=REPO)
@@ -244,7 +246,8 @@ def test_port_imports_without_jax():
                 roots = [node.module.split(".")[0]]
             else:
                 continue
-            assert not set(roots) & {"jax", "jaxlib", "flax", "mdt_policy_tpu", "tools"}, \
+            assert not set(roots) & {"jax", "jaxlib", "flax", "optax", "orbax",
+                                     "mdt_policy_tpu", "tools"}, \
                 (path, roots)
 
 

@@ -187,12 +187,14 @@ def _bound(dtype, ref, v):
     return 2.0 ** -7 * amax + 2.0 ** -8 * v.float().abs().max().item()
 
 
-# chip_smoke.py's B2 shapes: the replans' at B=1 and B=32, and the four of
-# the JAX package's ops/bench_pallas.py
+# chip_smoke.py's B2 shapes: the replans' at B=1 and B=32, the MDT
+# validation step's at B=128, and the four of the JAX package's
+# ops/bench_pallas.py
 CHIP_SHAPES = [
     (1, 8, 4, 48, False), (1, 8, 10, 48, True), (1, 8, 3, 64, False), (1, 8, 10, 64, True),
     (32, 8, 4, 48, False), (32, 8, 10, 48, True), (32, 8, 3, 64, False),
-    (32, 8, 10, 64, True), (1024, 8, 10, 48, True), (1024, 8, 4, 48, False),
+    (32, 8, 10, 64, True), (128, 8, 3, 64, False), (128, 8, 10, 64, True),
+    (1024, 8, 10, 48, True), (1024, 8, 4, 48, False),
     (1024, 8, 23, 48, False), (4096, 8, 10, 48, True)]
 # edge cases (B, H, T, D, causal, layout): one token; several rows a block;
 # the largest T and D; D not a multiple of the 16-byte vector; inputs

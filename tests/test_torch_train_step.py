@@ -160,17 +160,18 @@ def test_train_step_gradients_match_jax():
                                    rtol=1e-3, atol=1e-6, err_msg=k)
 
 
-def _assert_same_update(k, port_new, jax_new, before, grad, lr0):
+def _assert_same_update(k, port_new, jax_new, before, grad, lr0, floor=1e-6):
     """The AdamW update (new - before) of the port against JAX's. Where the
-    JAX gradient is above rounding (|g| > 1e-6, so the gradient test leaves
-    no room for a sign flip) the updates agree within 1e-3 relative plus two
-    ulps of the stored f32 parameter, the rounding of `before - update`; the
-    first Adam step is lr0 * g / (|g| + eps) and the weight decay adds
-    lr0 * 0.05 * p, about 4 ulps of p, so a missing decay, a scaled step or
-    a skipped leaf fails. Where |g| <= 1e-6 the sign of g is rounding and
-    the update may flip: there the parameters agree within 2 * lr0."""
+    JAX gradient is above rounding (|g| > floor, 1e-6 by default, so the
+    gradient test leaves no room for a sign flip) the updates agree within
+    1e-3 relative plus two ulps of the stored f32 parameter, the rounding
+    of `before - update`; the first Adam step is lr0 * g / (|g| + eps) and
+    the weight decay adds lr0 * 0.05 * p, about 4 ulps of p, so a missing
+    decay, a scaled step or a skipped leaf fails. Where |g| <= floor the
+    sign of g is rounding and the update may flip: there the parameters
+    agree within 2 * lr0."""
     p0, pn, jn, g = (np.asarray(t, np.float32) for t in (before, port_new, jax_new, grad))
-    big = np.abs(g) > 1e-6
+    big = np.abs(g) > floor
     d_port, d_jax = (pn - p0)[big], (jn - p0)[big]
     ulp = np.spacing(np.abs(jn[big]))
     excess = np.abs(d_port - d_jax) - (1e-3 * np.abs(d_jax) + 2 * ulp)
