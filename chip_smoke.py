@@ -13,7 +13,8 @@ both families' train states through `Checkpointer`, the evaluate CLI
 (`mdt_policy_tpu_torch.evaluate.main`) on those run directories, the
 frozen-tower embedding extraction through `extract_embeddings` and
 `extract_lang_goals` over a synthetic split, and the cache-mode train step
-from the rows it wrote. Prints one JSON line per phase:
+from the rows it wrote, and `train()` and the extraction CLI over an
+on-disk split. Prints one JSON line per phase:
 
   1. device   card name and power limit (nvidia-smi); TF32 off for f32
               matmuls and convolutions.
@@ -129,6 +130,30 @@ from the rows it wrote. Prints one JSON line per phase:
               the kernel's instantiation. V1 and V3 run B1's tensor-core
               body (`csrc/attention_sm90.cuh`).
 
+ 19. train_cli  per family, `train()` (the training CLI's function) at the
+              production config over a synthetic on-disk split at CALVIN's
+              frame sizes (`write_calvin_split`: 200 px static, 84 px
+              gripper frames, extracted with `data.extract`), B=128 per
+              stream, one decode thread: 2 epochs of 3 steps, the same run
+              directory resumed to epoch 3, and a run of 3 epochs never
+              interrupted; every trainable and EMA tensor of the resumed
+              run within RESUME_REL_TOL of the straight one (bit-equality
+              printed); launches per train step and per validation step
+              asserted; the loop's chunks/s from metrics.csv beside the
+              bare step's, the busy share of a `trainer.profile_steps`
+              window, the recon grid and system_info.json (TF32 off, cuDNN
+              deterministic).
+ 20. extract_cli  the extraction CLI (`data.extract_embeddings.main`) with
+              the MDT-V run directory's towers over both splits (launches
+              asserted), then 3 cache-mode `train()` steps from its files:
+              no tower kernel, 30 B3 RMSNorms a step.
+ 21. tf32     MDT with cuDNN's TF32 on and off from the same weights,
+              frames and draws: the B=1 replan chunk, one train step's 9
+              losses, the two ResNets' f32 outputs against float64, the
+              step's device ms (and with cuDNN free to choose algorithms).
+              The B3 and B2 rows of 3 also carry the library call's device
+              ms (`library_device_ms`).
+
 Then the kernel summary line, and last `{"ok": true, "device": ...}`. The
 summary holds each kernel at its main shape, with its launches on every
 path; V1 (`attn_pair_grid`, main row Voltron bB=16) and V3 (`attn_pair_v3`,
@@ -175,6 +200,7 @@ import inspect
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -324,6 +350,14 @@ EXTRACT_SENTENCES = 512
 # cuBLAS before), a few bf16 ulps (3.9e-3 relative each) through 12 blocks;
 # the bf16 tower bound of the port's CPU tests (5e-2).
 EXTRACT_ROUTE_TOL = 5e-2
+# train_cli / extract_cli: a synthetic split of CALVIN_EPISODES episodes of
+# CALVIN_EPISODE_LEN frames (237 windows of 21 frames: one batch of 128 a
+# loader epoch), CLI_STEPS_PER_EPOCH steps an epoch; the bound on every
+# trainable and EMA tensor of a run resumed at epoch 2 against one never
+# interrupted, relative to the tensor's max |value|
+CALVIN_EPISODES, CALVIN_EPISODE_LEN = 3, 100
+CLI_STEPS_PER_EPOCH = 3
+RESUME_REL_TOL = 1e-4
 # attention-variant microbench (V1, V3): the JAX tools' default batches
 # (Voltron images, CLIP vision images) and chain depth
 VARIANT_BATCHES = (1024, 512)
@@ -411,6 +445,20 @@ def device_ms(fn, kernel_name: str, iters: int, torch):
     times = [e.time_range.elapsed_us() for e in _device_events(torch, prof)
              if kernel_name in e.name]
     return sum(times) / len(times) / 1e3 if times else None
+
+
+def call_device_ms(fn, iters: int, torch):
+    """Mean device time per call of `fn`: every kernel, copy and set it runs
+    on the card, from torch.profiler over `iters` calls (a library call may
+    launch several kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in _device_events(torch, prof)) / iters / 1e3
 
 
 def bound_ms(n_bytes: float, flops: float, dtype_name: str):
@@ -552,6 +600,7 @@ def phase_kernel_b3(torch, device):
                    "device_ms": device_ms(kernel, "fused_norm_kernel", 20, torch),
                    "plain_ms": event_ms(plain, iters, torch),
                    "library_ms": event_ms(library, iters, torch),
+                   "library_device_ms": call_device_ms(library, 20, torch),
                    "bound_ms": bms, "bound_by": by}
             emit(row)
             if not err <= bound:
@@ -594,6 +643,8 @@ def phase_kernel_b2(torch, device):
                                         iters, torch),
                    "library_ms": event_ms(lambda: F.scaled_dot_product_attention(
                        q, k, v, is_causal=causal), iters, torch),
+                   "library_device_ms": call_device_ms(lambda: F.scaled_dot_product_attention(
+                       q, k, v, is_causal=causal), 20, torch),
                    "bound_ms": bms, "bound_by": by}
             if dtype_name == "float32":
                 f64 = small_seq_mha_reference(q.double(), k.double(), v.double(), causal)
@@ -2075,6 +2126,332 @@ def phase_cache_train(torch, net, device, launches: Launches, smi, out):
     return total
 
 
+def write_calvin_split(root, seed: int):
+    """A synthetic CALVIN split at CALVIN's frame sizes (200 px static, 84 px
+    gripper): CALVIN_EPISODES episodes of CALVIN_EPISODE_LEN per-frame npz
+    files, ep_start_end_ids.npy, one annotation an episode, and the
+    extracted actions and frames (`data.extract`), from a seeded generator."""
+    from mdt_policy_tpu_torch.data.extract import extract_by_key, extract_frames
+    rng = np.random.default_rng(seed)
+    os.makedirs(root)
+    n = CALVIN_EPISODES * CALVIN_EPISODE_LEN
+    for i in range(n):
+        np.savez(os.path.join(root, f"episode_{i:07d}.npz"),
+                 rgb_static=rng.integers(0, 256, (200, 200, 3), dtype=np.uint8),
+                 rgb_gripper=rng.integers(0, 256, (84, 84, 3), dtype=np.uint8),
+                 robot_obs=rng.normal(size=15).astype(np.float32),
+                 scene_obs=rng.normal(size=24).astype(np.float32),
+                 rel_actions=rng.uniform(-1, 1, 7).astype(np.float32))
+    bounds = [(e * CALVIN_EPISODE_LEN, (e + 1) * CALVIN_EPISODE_LEN - 1)
+              for e in range(CALVIN_EPISODES)]
+    np.save(os.path.join(root, "ep_start_end_ids.npy"), np.asarray(bounds, np.int64))
+    texts = ["open the drawer", "push the red block to the left", "turn on the led light"]
+    lang = {"info": {"indx": bounds},
+            "language": {"ann": [texts[e % len(texts)] for e in range(CALVIN_EPISODES)],
+                         "emb": rng.normal(size=(CALVIN_EPISODES, 1, 384)).astype(np.float32)}}
+    os.makedirs(os.path.join(root, "lang_clip_resnet50"))
+    np.save(os.path.join(root, "lang_clip_resnet50", "auto_lang_ann.npy"), lang,
+            allow_pickle=True)
+    extract_by_key(root, "rel_actions")
+    extract_frames(root)
+
+
+def expected_validation_launches(cfg, family: str):
+    """Per validation step (both scopes, no dropout): MDT's as
+    `expected_mdt_validation_launches`; MDT-V's the train step's tower and
+    decoder kernels without the MAP head's four RMSNorms (no contrastive
+    loss), and B2 at every self-attention of the DDIM-10 denoiser."""
+    if family == "mdt":
+        return expected_mdt_validation_launches(cfg)
+    train = expected_train_launches(cfg)
+    return {**train, "fused_rms_norm": train["fused_rms_norm"] - 2 * 2,
+            "small_seq_mha": 2 * b2_per_replan(cfg)}
+
+
+@contextlib.contextmanager
+def counting_steps(launches: Launches):
+    """`agents.train_step` and `agents.validation_step`, which `train()`
+    looks up at each run, wrapped to record the launches of each call."""
+    from mdt_policy_tpu_torch import agents
+    calls = {"train_step": [], "validation_step": []}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            before = launches.read()
+            out = fn(*args, **kwargs)
+            after = launches.read()
+            calls[name].append({k: after[k] - before[k] for k in after})
+            return out
+        return wrapper
+    with mock.patch.object(agents, "train_step", counted("train_step", agents.train_step)), \
+            mock.patch.object(agents, "validation_step",
+                              counted("validation_step", agents.validation_step)):
+        yield calls
+
+
+def _metrics_rows(path):
+    """metrics.csv as {column: float} rows (the header repeats when the
+    columns grow)."""
+    import csv
+    rows, header = [], None
+    with open(path) as f:
+        for row in csv.reader(f):
+            if row[0] == "step":
+                header = row
+            else:
+                rows.append({k: float(v) for k, v in zip(header, row) if v != ""})
+    return rows
+
+
+def _run_config(family, log_dir, name, data_root, epochs, **trainer):
+    from mdt_policy_tpu_torch.training import DataConfig, RunConfig, TrainerConfig
+    trainer = {"batch_size": TRAIN_BATCH, "max_epochs": epochs,
+               "steps_per_epoch": CLI_STEPS_PER_EPOCH, "limit_val_batches": 1,
+               "seed": 5, "log_every": 1, "keep_checkpoints": 1, **trainer}
+    return RunConfig(agent=family, log_dir=log_dir, run_name=name,
+                     data=DataConfig(root_data_dir=data_root, num_workers=1),
+                     trainer=TrainerConfig(**trainer))
+
+
+def phase_train_cli(torch, family, device, launches: Launches, smi, root, bare):
+    """`train()` at the production config of `family` over the synthetic
+    split under `root`: 2 epochs of CLI_STEPS_PER_EPOCH steps, then the same
+    run directory resumed to epoch 3, against a run of 3 epochs never
+    interrupted (every trainable and EMA tensor within RESUME_REL_TOL
+    relative; bit-equality reported). Launches asserted per train and
+    validation step; the loop's chunks/s from metrics.csv beside the bare
+    step's (`bare`, the train timing phase's row); the busy share of a
+    profiled window; whether the recon grid was written."""
+    from mdt_policy_tpu_torch.training import train
+    log_dir = os.path.join(root, "runs")
+    cfg = lambda name, epochs, **kw: _run_config(family, log_dir, name, root, epochs, **kw)
+    profile = f"{CLI_STEPS_PER_EPOCH + 1}:{CLI_STEPS_PER_EPOCH + 3}"
+    launches.reset()
+    t0 = time.perf_counter()
+    with counting_steps(launches) as calls:
+        first = train(cfg(f"{family}_resumed", 2), device=device)
+        first_step = first.step
+        del first
+        torch.cuda.empty_cache()
+        resumed = train(cfg(f"{family}_resumed", 3), device=device)
+        straight = train(cfg(f"{family}_straight", 3, profile_steps=profile), device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    total = launches.read()
+    worst, bit_equal, n_tensors = 0.0, True, 0
+    for kind, a, b in (("params", dict(resumed.net.trainable_parameters()),
+                        dict(straight.net.trainable_parameters())),
+                       ("ema", resumed.ema, straight.ema)):
+        for k in b:
+            x, y = a[k].detach().float(), b[k].detach().float()
+            rel = ((x - y).abs().max() / y.abs().max().clamp_min(1e-30)).item()
+            worst = max(worst, rel)
+            bit_equal = bit_equal and torch.equal(a[k], b[k])
+            n_tensors += 1
+    run = os.path.join(log_dir, f"{family}_straight")
+    rows = [r for r in _metrics_rows(os.path.join(run, "metrics.csv")) if "perf/chunks_per_sec" in r]
+    # steps that follow no epoch end (validation and save) and lie outside
+    # the profiled window
+    skip = {1 + e * CLI_STEPS_PER_EPOCH for e in range(3)} | \
+        {CLI_STEPS_PER_EPOCH + 2, CLI_STEPS_PER_EPOCH + 3}
+    loop = [r["perf/chunks_per_sec"] for r in rows if int(r["step"]) not in skip]
+    with open(os.path.join(run, "profile", "summary.json")) as f:
+        prof = json.load(f)
+    with open(os.path.join(run, "system_info.json")) as f:
+        info = json.load(f)
+    media = os.path.join(run, "media")
+    expected_train = (expected_train_launches if family == "mdtv"
+                      else expected_mdt_train_launches)(straight.net.cfg)
+    expected_val = expected_validation_launches(straight.net.cfg, family)
+    losses = [r["train/total_loss"] for r in rows]
+    row = {"phase": "train_cli", "family": family, "batch_per_stream": TRAIN_BATCH,
+           "steps": {"first_run": first_step, "resumed": resumed.step, "straight": straight.step},
+           "train_steps_counted": len(calls["train_step"]),
+           "validation_steps_counted": len(calls["validation_step"]),
+           "launches_per_step": calls["train_step"][0], "expected_per_step": expected_train,
+           "launches_per_validation": calls["validation_step"][0],
+           "expected_per_validation": expected_val, "launches": total,
+           "resume_max_rel_err": worst, "resume_bound": RESUME_REL_TOL,
+           "resume_bit_equal": bit_equal, "tensors_compared": n_tensors,
+           "losses": losses, "finite": bool(np.all(np.isfinite(losses))),
+           "loop_chunks_per_s": loop, "loop_chunks_per_s_median": float(np.median(loop)),
+           "bare_step_chunks_per_s": bare["chunks_per_s"],
+           "bare_step_ms_p50": bare["step_ms_p50"],
+           "profiled_window": profile, "profile": prof,
+           "recon_png_written": sorted(os.listdir(media)) if os.path.isdir(media) else [],
+           "system_info": info,
+           "seconds": seconds, "card": smi}
+    emit(row)
+    n_steps = 2 * CLI_STEPS_PER_EPOCH + CLI_STEPS_PER_EPOCH + 3 * CLI_STEPS_PER_EPOCH
+    if not (row["finite"] and first_step == 2 * CLI_STEPS_PER_EPOCH
+            and resumed.step == straight.step == 3 * CLI_STEPS_PER_EPOCH
+            and len(calls["train_step"]) == n_steps and len(calls["validation_step"]) == 6):
+        raise AssertionError(f"{family} train() runs went wrong: {row}")
+    if any(c != expected_train for c in calls["train_step"]):
+        raise AssertionError(f"{family} train() launches per step {calls['train_step']}, "
+                             f"expected {expected_train}")
+    if any(c != expected_val for c in calls["validation_step"]):
+        raise AssertionError(f"{family} train() launches per validation "
+                             f"{calls['validation_step']}, expected {expected_val}")
+    if not worst <= RESUME_REL_TOL:
+        raise AssertionError(f"{family} resumed run drifted from the straight one: {row}")
+    if (row["system_info"]["cudnn_allow_tf32"] or row["system_info"]["matmul_allow_tf32"]
+            or not row["system_info"]["cudnn_deterministic"]):
+        raise AssertionError(f"train() left TF32 on or cuDNN free: {row['system_info']}")
+    del resumed, straight
+    shutil.rmtree(run)  # its checkpoint: disk space
+    torch.cuda.empty_cache()
+    return total, os.path.join(log_dir, f"{family}_resumed")
+
+
+def phase_extract_cli(torch, device, launches: Launches, smi, root, run):
+    """The extraction CLI (`data.extract_embeddings.main`) with the MDT-V run
+    directory's towers over both splits under `root`; then `train()` in cache
+    mode from what it wrote, CLI_STEPS_PER_EPOCH steps: no tower kernel a
+    step, 30 B3 RMSNorms."""
+    from mdt_policy_tpu_torch.data import extract_embeddings
+    from mdt_policy_tpu_torch.evaluate import load_run_config
+    from mdt_policy_tpu_torch.training import _make_agent, train
+    cfg = _make_agent(load_run_config(run))
+    launches.reset()
+    seconds = {}
+    for split in ("training", "validation"):
+        t0 = time.perf_counter()
+        extract_embeddings.main(["-i", os.path.join(root, split), "--train-folder", run,
+                                 "--device", str(device)])
+        torch.cuda.synchronize()
+        seconds[split] = time.perf_counter() - t0
+    extracted = launches.read()
+    frames = CALVIN_EPISODES * CALVIN_EPISODE_LEN
+    n_batches = -(-frames // EXTRACT_BATCH)
+    fwd = n_batches + min(2, n_batches)  # the clean pass and the self-check
+    per_batch = cfg.vit_depth + cfg.clip_vision_layers
+    want = {"fused_qkv_attention": 0, "fused_rms_norm": 0,
+            "fused_layer_norm": 2 * (3 * fwd + 1),
+            "attention_halfblock": 2 * (per_batch * fwd + cfg.clip_text_layers),
+            "mlp_halfblock": 2 * (per_batch * fwd + cfg.clip_text_layers),
+            **NO_DENOISER, **NO_VARIANTS}
+    log_dir = os.path.join(root, "runs")
+    run_cfg = _run_config("mdtv", log_dir, "mdtv_cache", root, 1, log_recon_images=False)
+    run_cfg.data.use_extracted_embeddings = True
+    with counting_steps(launches) as calls:
+        state = train(run_cfg, device=device)
+    torch.cuda.synchronize()
+    total = launches.read()
+    expected = expected_cache_train_launches(cfg)
+    rows = [r for r in _metrics_rows(os.path.join(log_dir, "mdtv_cache", "metrics.csv"))
+            if "train/total_loss" in r]
+    row = {"phase": "extract_cli", "frames_per_split": frames, "seconds": seconds,
+           "frames_per_s": {k: frames / v for k, v in seconds.items()},
+           "extraction_launches": extracted, "expected_extraction": want,
+           "cache_steps": state.step, "cache_launches_per_step": calls["train_step"],
+           "expected_per_step": expected,
+           "cache_losses": [r["train/total_loss"] for r in rows],
+           "cache_chunks_per_s": [r["perf/chunks_per_sec"] for r in rows],
+           "launches": total, "card": smi}
+    emit(row)
+    if extracted != want:
+        raise AssertionError(f"extraction CLI launches {extracted}, expected {want}")
+    if not (state.step == CLI_STEPS_PER_EPOCH
+            and all(c == expected for c in calls["train_step"])
+            and all(np.isfinite(row["cache_losses"]))):
+        raise AssertionError(f"cache-mode train() went wrong: {row}")
+    del state
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_tf32(torch, device, smi):
+    """ROADMAP queue C: MDT with cuDNN's TF32 on and off from the same weights,
+    frames and draws: the B=1 replan chunk, one train step's 9 losses, the
+    two ResNets' f32 outputs against float64, and the train step's device
+    ms, all with cuDNN's deterministic algorithms as `train()` runs them;
+    then the step's device ms with TF32 off and cuDNN free to choose.
+    Restores both TF32 flags (off) and the determinism flag afterwards."""
+    from mdt_policy_tpu_torch.agents import (MDTConfig, denoise_actions, init_train_state,
+                                             make_draws, train_step)
+    cudnn = torch.backends.cudnn
+    net = build_net(torch, MDTConfig(), device)
+    cfg = net.cfg
+    obs, goal = make_inputs(torch, cfg, 1, seed=2, device=device)
+    noise = torch.randn((1, cfg.act_window_size, cfg.action_dim),
+                        generator=torch.Generator().manual_seed(3)).to(device)
+    batch = make_train_batch(torch, cfg, TRAIN_BATCH, device)
+    state = init_train_state(net)
+
+    def chunk():
+        with torch.no_grad():
+            emb = net.perceive(obs["rgb_static"], obs["rgb_gripper"])
+            return denoise_actions(net, emb, net.encode_language_goal(goal["lang_tokens"]),
+                                   noise=noise)
+
+    def losses():
+        twin = copy.deepcopy(state)
+        gen = torch.Generator(device).manual_seed(8)
+        draws = {k: make_draws(cfg, TRAIN_BATCH, gen) for k in sorted(batch)}
+        m = train_step(twin, batch, draws=draws)
+        out = {k: float(v) for k, v in m.items() if k.endswith("_loss")}
+        del twin
+        return out
+
+    gen = torch.Generator(device).manual_seed(14)
+    frames = {"static": torch.randn((8, 1, cfg.img_size, cfg.img_size, 3), generator=gen,
+                                    device=device),
+              "gripper": torch.randn((8, 1, 84, 84, 3), generator=gen, device=device)}
+    f64 = {}
+    with torch.no_grad():
+        for cam in ("static", "gripper"):
+            res = getattr(net, f"{cam}_resnet")
+            f64[cam] = copy.deepcopy(res).double()(frames[cam].double())
+    out = {}
+    deterministic = cudnn.deterministic
+    cudnn.deterministic = True
+    for on in (False, True):
+        cudnn.allow_tf32 = on
+        with torch.no_grad():
+            resnets = {cam: getattr(net, f"{cam}_resnet")(frames[cam]) for cam in frames}
+        out[on] = {"chunk": chunk(), "losses": losses(), "resnets": resnets}
+        twin = copy.deepcopy(state)
+        step_gen = torch.Generator(device).manual_seed(9)
+        out[on]["profile"] = profile_calls(torch, lambda: train_step(twin, batch,
+                                                                     generator=step_gen), 2)
+        del twin
+    cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cudnn.deterministic = False
+    twin = copy.deepcopy(state)
+    step_gen = torch.Generator(device).manual_seed(9)
+    free = profile_calls(torch, lambda: train_step(twin, batch, generator=step_gen), 2)
+    del twin
+    cudnn.deterministic = deterministic
+    rel = lambda a, b: ((a.double() - b.double()).abs().max() /
+                        b.double().abs().max().clamp_min(1e-30)).item()
+    row = {"phase": "tf32", "family": "mdt", "flag": "torch.backends.cudnn.allow_tf32",
+           "matmul_allow_tf32": False,
+           "chunk_max_abs_diff_on_vs_off": (out[True]["chunk"] - out[False]["chunk"]
+                                            ).abs().max().item(),
+           "chunk_max_abs": out[False]["chunk"].abs().max().item(),
+           "losses_off": out[False]["losses"], "losses_on": out[True]["losses"],
+           "losses_max_rel_diff": max(abs(out[True]["losses"][k] - v) / max(abs(v), 1e-30)
+                                      for k, v in out[False]["losses"].items()),
+           "resnet_rel_err_vs_float64": {
+               cam: {"tf32_off": rel(out[False]["resnets"][cam], f64[cam]),
+                     "tf32_on": rel(out[True]["resnets"][cam], f64[cam])} for cam in frames},
+           "step_device_ms": {"tf32_off": out[False]["profile"]["device_ms_per_call"],
+                              "tf32_on": out[True]["profile"]["device_ms_per_call"]},
+           "step_wall_ms": {"tf32_off": out[False]["profile"]["wall_ms_per_call"],
+                            "tf32_on": out[True]["profile"]["wall_ms_per_call"]},
+           "cudnn_deterministic": True,
+           "step_device_ms_tf32_off_cudnn_free": free["device_ms_per_call"],
+           "card": smi}
+    emit(row)
+    if not all(np.isfinite(v) for o in out.values() for v in o["losses"].values()):
+        raise AssertionError(f"tf32 phase: a loss is not finite: {row}")
+    del net, state, batch, out
+    torch.cuda.empty_cache()
+    return row
+
+
 def kernel_entry(name, source, replaces, launches, rows, main):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -2082,7 +2459,9 @@ def kernel_entry(name, source, replaces, launches, rows, main):
             "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main["shape"],
-            "dtype": main["dtype"]}
+            "dtype": main["dtype"],
+            **({"library_device_ms": main["library_device_ms"]}
+               if "library_device_ms" in main else {})}
 
 
 def main() -> int:
@@ -2119,12 +2498,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     state, batch, paths["train"] = phase_train(torch, net, device, launches)
     phase_train_e2e(torch, state, batch, device, launches)
-    phase_train_timing(torch, state, batch, device, smi)
+    bare = {"mdtv": phase_train_timing(torch, state, batch, device, smi)}
     del batch
     torch.cuda.empty_cache()
     mdt_state, batch, paths["mdt_train"] = phase_train(torch, mdt, device, launches, "mdt")
     phase_train_e2e(torch, mdt_state, batch, device, launches, phase="mdt_train_e2e")
-    phase_train_timing(torch, mdt_state, batch, device, smi, phase="mdt_train_timing")
+    bare["mdt"] = phase_train_timing(torch, mdt_state, batch, device, smi,
+                                     phase="mdt_train_timing")
     paths["mdt_validation"] = phase_validation(torch, mdt, batch, device, launches,
                                                "mdt_validation")
     del batch
@@ -2140,6 +2520,19 @@ def main() -> int:
         paths["extract"] = phase_extract(torch, net, device, launches, smi, root)
         paths["cache_train"] = phase_cache_train(torch, net, device, launches, smi,
                                                  os.path.join(root, "extracted"))
+    del net
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        for split, seed in (("training", 20), ("validation", 21)):
+            write_calvin_split(os.path.join(root, split), seed)
+        paths["train_cli"], run = phase_train_cli(torch, "mdtv", device, launches, smi,
+                                                  root, bare["mdtv"])
+        mdt_cli, mdt_run = phase_train_cli(torch, "mdt", device, launches, smi, root,
+                                           bare["mdt"])
+        shutil.rmtree(mdt_run)
+        paths["train_cli"] = {k: v + mdt_cli[k] for k, v in paths["train_cli"].items()}
+        paths["extract_cli"] = phase_extract_cli(torch, device, launches, smi, root, run)
+    phase_tf32(torch, device, smi)
     paths["attn_variants"] = variant_launches
     emit(summary(rows, paths))
     emit({"ok": True, "device": {"platform": "gpu",
@@ -2153,7 +2546,7 @@ def summary(rows, paths):
     kernels and the microbench's V1 and V3, f32 for B2, whose path is the
     f32 denoiser), with its launches on each path; fails if a kernel was not
     launched on one of the paths it belongs to."""
-    replans = ("replan", "mdt_replan", "rollout", "evaluate_cli")
+    replans = ("replan", "mdt_replan", "rollout", "evaluate_cli", "train_cli")
     entries = []
     for name, source, replaces, kind, shape, dtype, own in (
             ("fused_qkv_attention", "fused_qkv_attention.cu",
@@ -2161,18 +2554,19 @@ def summary(rows, paths):
              "bfloat16", replans + ("train", "mdt_train", "mdt_validation")),
             ("fused_layer_norm", "fused_norm.cu", "mdt_policy_tpu/ops/fused_norm.py:134",
              "b3", "clip_vision_train", "bfloat16",
-             replans + ("train", "mdt_train", "mdt_validation", "extract")),
+             replans + ("train", "mdt_train", "mdt_validation", "extract", "extract_cli")),
             ("fused_rms_norm", "fused_norm.cu", "mdt_policy_tpu/ops/fused_norm.py:159",
              "b3", "voltron_train", "bfloat16", ("replan", "rollout", "evaluate_cli", "train",
-                                                 "mdt_train", "mdt_validation", "cache_train")),
+                                                 "mdt_train", "mdt_validation", "cache_train",
+                                                 "train_cli", "extract_cli")),
             ("small_seq_mha", "small_seq_mha.cu",
              "mdt_policy_tpu/ops/pallas_attention.py:77", "b2", "mdtv_dec_b32", "float32",
-             replans + ("mdt_validation",)),
+             replans + ("mdt_validation", "extract_cli")),
             ("attention_halfblock", "attention_halfblock.cu",
              "mdt_policy_tpu/ops/attention_halfblock.py:145", "hb", "voltron", "bfloat16",
-             ("extract",)),
+             ("extract", "extract_cli")),
             ("mlp_halfblock", "halfblock_gemm.cu", "mdt_policy_tpu/ops/mlp_halfblock.py:94",
-             "hb", "voltron", "bfloat16", ("extract",)),
+             "hb", "voltron", "bfloat16", ("extract", "extract_cli")),
             ("attn_pair_grid", "attn_pair_grid.cu", "tools/attn_kernel_experiment.py:31",
              "var", "voltron: pair-grid bB=16", "bfloat16", ("attn_variants",)),
             ("attn_pair_v3", "attn_pair_v3.cu", "tools/attn_kernel_round3.py:52", "var",

@@ -56,7 +56,8 @@ from .config import MDTVConfig
 
 __all__ = ["FROZEN_PREFIXES", "MDTVAgentNet", "MDTVPolicy", "TrainState",
            "denoise_actions", "init_random_", "init_train_state", "make_draws",
-           "make_optimizer", "resize_nhwc", "train_step", "validation_step"]
+           "make_optimizer", "reconstruction_forward", "resize_nhwc", "train_step",
+           "validation_step"]
 
 # top-level networks that stay frozen: no gradient, no optimizer state, no
 # EMA copy (JAX mdtv_agent.py:57)
@@ -551,6 +552,33 @@ def validation_step(net: nn.Module, batch: Mapping[str, Batch], *,
         total = total + pred_loss
     metrics["val_act/action_loss"] = total / len(scopes)
     return metrics
+
+
+@torch.no_grad()
+def reconstruction_forward(net: nn.Module, b: Batch, mask_noise: torch.Tensor, *,
+                           modality: str = "lang"):
+    """Masked-foresight reconstruction of one scope for visualization (JAX
+    `reconstruction_forward`, mdtv_agent.py:545-578): the context encoded
+    once (under AdaLN it does not see sigma, so JAX's sigma_max changes
+    nothing), then the foresight decoder with the uniform draw `mask_noise`
+    (B, n_patches). The goal is the text tower's in the lang scope when the
+    batch carries tokens, else the image goal, as in JAX; either net and
+    cache batches. Returns (goal_imgs, recon, mask) for
+    `models.masked_decoder.reconstruct_images`."""
+    if "voltron_tokens" in b and "image_latent_goal" in b:
+        emb = net.perceive_tokens(b["voltron_tokens"])
+        image_goal = b["image_latent_goal"].float()
+    else:
+        emb = net.perceive(b["rgb_static"][:, :-1], b["rgb_gripper"][:, :-1])
+        image_goal = net.encode_visual_goal(b["rgb_static"][:, -1])
+    goal = net.encode_language_goal(b["lang_tokens"]) \
+        if modality == "lang" and "lang_tokens" in b else image_goal
+    if goal.ndim == 2:
+        goal = goal[:, None]
+    context = net.encode_context(emb, goal, modality=modality)
+    goal_imgs = torch.stack([b["gen_static"], b["gen_gripper"]], dim=1)
+    recon, mask, _, _ = net.gen_img(context, goal_imgs, mask_noise)
+    return goal_imgs, recon, mask
 
 
 # ---------------------------------------------------------------------------

@@ -24,17 +24,20 @@ shifts come from a `torch.Generator` seeded from (aug_seed, variant, first
 row), so a recomputed batch is bit-identical; the self-check recomputes
 random batches and compares them bit for bit.
 
-The command-line entry of the JAX package, which loads a run directory's
-weights, waits for checkpoints in the port; `extract_embeddings(dataset_dir,
-net)` and `extract_lang_goals(dataset_dir, net)` are the entry points.
+The command line loads a run directory's weights (the port's
+`evaluate.load_run_agent`, EMA unless `--no-ema`) on `--device` (default
+`cuda`) and runs both over a split:
+
+    python -m mdt_policy_tpu_torch.data.extract_embeddings -i /data/task_D_D/training \
+        --train-folder runs/<name> [--aug-variants 2] [--out-dir DIR]
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import logging
-import re
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -42,29 +45,17 @@ import numpy as np
 import torch
 
 from ..utils.clip_tokenizer import tokenize
+from .extract import _episode_files
 from .transforms import preprocess_rgb_eval, preprocess_rgb_train
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["extract_embeddings", "extract_lang_goals", "make_fwd", "make_aug_fwd",
-           "aug_generator",
-           "load_embeddings", "EMBEDDING_FILES", "AUG_EMBEDDING_FILES"]
+           "aug_generator", "load_embeddings", "main", "EMBEDDING_FILES",
+           "AUG_EMBEDDING_FILES"]
 
 EMBEDDING_FILES = ("ep_voltron_tokens.npy", "ep_clip_img_emb.npy")
 AUG_EMBEDDING_FILES = ("ep_voltron_tokens_aug.npy", "ep_clip_img_emb_aug.npy")
-
-
-def _episode_files(dataset_dir: Path):
-    """(episode_*.npz paths, their frame numbers), in frame order (a copy of
-    `mdt_policy_tpu/data/extract.py::_episode_files`)."""
-    frame_re = re.compile(r"episode_(\d+)\.npz$")
-    files = sorted(
-        (p for p in dataset_dir.glob("episode_*.npz")),
-        key=lambda p: int(frame_re.search(p.name).group(1)))
-    if not files:
-        raise FileNotFoundError(f"no episode_*.npz under {dataset_dir}")
-    names = [int(frame_re.search(p.name).group(1)) for p in files]
-    return files, names
 
 
 class _FrameReader:
@@ -325,3 +316,51 @@ def load_embeddings(out_dir, rows=None) -> Tuple[Dict[str, torch.Tensor], dict]:
     if lang.exists():
         tensors["lang_latent_goal"] = torch.from_numpy(np.load(lang))
     return tensors, json.loads((out_dir / "embeddings_meta.json").read_text())
+
+
+def main(argv=None):
+    """The extraction CLI (JAX `main`, extract_embeddings.py:320-350): the
+    run directory's towers over a split, the frame cache and the
+    annotation cache, in full float32 (`utils.misc.full_f32`)."""
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("-i", "--data-dir", required=True,
+                    help="dataset split dir (training/ or validation/)")
+    ap.add_argument("--train-folder", required=True,
+                    help="training run dir whose (frozen) tower weights "
+                         "compute the embeddings")
+    ap.add_argument("--batch-size", type=int, default=64)
+    ap.add_argument("--aug-variants", type=int, default=0,
+                    help="also cache K DrQ-shift-augmented embedding variants "
+                         "per frame (restores the reference's RandomShiftsAug "
+                         "to cache-mode training; K=2-4 typical)")
+    ap.add_argument("--aug-seed", type=int, default=0)
+    ap.add_argument("--no-ema", action="store_true",
+                    help="use raw instead of EMA weights (frozen towers are "
+                         "identical under both; this only matters for "
+                         "sanity experiments)")
+    ap.add_argument("--out-dir", default=None)
+    ap.add_argument("--lang-folder", default="lang_clip_resnet50",
+                    help="annotation folder whose sentences get text-goal "
+                         "embeddings cached (skipped when absent)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the towers (default cuda; raises "
+                         "without one unless the CPU is named)")
+    args = ap.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+
+    from ..evaluate import load_run_agent
+    from ..utils.misc import full_f32
+    full_f32()
+    net, _, _ = load_run_agent(args.train_folder, use_ema=not args.no_ema,
+                               device=args.device)
+    extract_embeddings(args.data_dir, net, batch_size=args.batch_size,
+                       out_dir=args.out_dir, source=str(args.train_folder),
+                       aug_variants=args.aug_variants, aug_seed=args.aug_seed)
+    extract_lang_goals(args.data_dir, net, out_dir=args.out_dir,
+                       lang_folder=args.lang_folder,
+                       context_length=net.cfg.clip_context_length)
+
+
+if __name__ == "__main__":
+    main()

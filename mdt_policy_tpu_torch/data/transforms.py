@@ -1,7 +1,8 @@
-"""Camera-frame preprocessing on the frames' device (port of the camera part
-of `mdt_policy_tpu/data/transforms.py`): resize, the DrQ-v2 random shift,
-/255 and CLIP normalization, and the train and eval pipelines built from
-them.
+"""Batch preprocessing on the frames' device (port of
+`mdt_policy_tpu/data/transforms.py`): resize, the DrQ-v2 random shift,
+/255 and CLIP normalization, the train and eval camera pipelines built from
+them, and the train-time noise and action transforms (Gaussian noise, the
+gamma noise of depth frames, vector normalization, relative actions).
 
   rgb_static : resize 224 -> random shift (pad 10) -> /255 -> CLIP-normalize
   rgb_gripper: resize 84  -> random shift (pad 4)  -> /255 -> CLIP-normalize
@@ -9,12 +10,15 @@ them.
 
 Frames are NHWC, (B, H, W, 3) or (B, T, H, W, 3), uint8 or float. The random
 shift draws its integer offsets from an explicit `torch.Generator`, or takes
-them as an `offsets` tensor (B, 2), which the tests fill from numpy.
+them as an `offsets` tensor (B, 2), which the tests fill from numpy; the
+noise transforms take a generator or their draws the same way.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -22,7 +26,9 @@ import torch.nn.functional as F
 from ..agents.mdtv_agent import resize_nhwc
 
 __all__ = ["CLIP_IMAGE_MEAN", "CLIP_IMAGE_STD", "resize_batch", "random_shift_aug",
-           "scale_and_normalize", "preprocess_rgb_train", "preprocess_rgb_eval"]
+           "scale_and_normalize", "add_gaussian_noise", "normalize_vector",
+           "add_depth_noise", "relative_actions", "preprocess_rgb_train",
+           "preprocess_rgb_eval"]
 
 # OpenAI CLIP's channel statistics (mdt_policy_tpu/models/clip.py:387-388)
 CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -69,6 +75,56 @@ def scale_and_normalize(images: torch.Tensor,
     m = torch.tensor(mean, dtype=torch.float32, device=x.device)
     s = torch.tensor(std, dtype=torch.float32, device=x.device)
     return (x - m) / s
+
+
+def add_gaussian_noise(x: torch.Tensor, std: float = 0.01, mean: float = 0.0, *,
+                       generator: Optional[torch.Generator] = None,
+                       noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x + N(0, 1) * std + mean (the JAX `add_gaussian_noise`, :84-87), the
+    N(0, 1) draw of x's shape from `generator` or given as `noise`."""
+    if noise is None:
+        if generator is None:
+            raise ValueError("add_gaussian_noise needs a generator or the noise")
+        noise = torch.randn(x.shape, generator=generator, device=generator.device)
+    return x + noise.to(device=x.device, dtype=x.dtype) * std + mean
+
+
+def normalize_vector(x: torch.Tensor, mean: torch.Tensor, std: torch.Tensor) -> torch.Tensor:
+    """(x - mean) / std with zero stds treated as 1 (the JAX
+    `normalize_vector`, :90-93)."""
+    std = torch.as_tensor(std, dtype=x.dtype, device=x.device)
+    std = torch.where(std == 0.0, torch.ones_like(std), std)
+    return (x - torch.as_tensor(mean, dtype=x.dtype, device=x.device)) / std
+
+
+def add_depth_noise(depth: torch.Tensor, shape: float = 1000.0, rate: float = 1000.0,
+                    sample_shape: Tuple[int, ...] = (), *,
+                    generator: Optional[torch.Generator] = None,
+                    gamma: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Multiplicative gamma noise on depth frames (the JAX `add_depth_noise`,
+    :96-107): one Gamma(shape) draw of `sample_shape` ((B,) for one draw a
+    sample), divided by `rate` and broadcast over the frame, drawn from
+    `generator` or given as `gamma` (the undivided draw)."""
+    if gamma is None:
+        if generator is None:
+            raise ValueError("add_depth_noise needs a generator or the gamma draw")
+        gamma = torch._standard_gamma(torch.full(sample_shape, shape, device=generator.device),
+                                      generator=generator)
+    noise = gamma.to(device=depth.device, dtype=torch.float32) / rate
+    noise = noise.reshape(tuple(sample_shape) + (1,) * (depth.ndim - len(sample_shape)))
+    return depth * noise.to(depth.dtype)
+
+
+def relative_actions(actions: torch.Tensor, robot_obs: torch.Tensor,
+                     max_pos: float, max_orn: float) -> torch.Tensor:
+    """Absolute -> relative actions (the JAX `relative_actions`, :110-116):
+    the position and the wrapped orientation deltas clipped and scaled to
+    [-1, 1], the gripper action kept."""
+    rel_pos = torch.clamp(actions[..., :3] - robot_obs[..., :3], -max_pos, max_pos) / max_pos
+    diff = actions[..., 3:6] - robot_obs[..., 3:6]
+    rel_orn = torch.remainder(diff + math.pi, 2 * math.pi) - math.pi
+    rel_orn = torch.clamp(rel_orn, -max_orn, max_orn) / max_orn
+    return torch.cat([rel_pos, rel_orn, actions[..., -1:]], dim=-1)
 
 
 def _flatten_time(x: torch.Tensor):

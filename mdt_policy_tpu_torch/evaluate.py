@@ -8,7 +8,8 @@
 * re-reads the run's config snapshot (`config.yaml`, written by either
   package's training, or by `utils/checkpoint.py::convert_run_dir` from a
   JAX run) and builds the agent it names (`mdt` or `mdtv`) on `--device`
-  (default `cuda`; the CPU only when named);
+  (default `cuda`; the CPU only when named), with float32 matmuls and
+  convolutions in full float32 (`utils.misc.full_f32`), not TF32;
 * restores the best checkpoint's EMA weights (`--no-ema`: the raw ones) and
   applies the eval-time sampler overrides; a value the port lacks (a
   sampler other than `ddim`) raises, also in a sweep;
@@ -141,6 +142,8 @@ def main(argv=None):
     ap.add_argument("--sweep-sigma-min", nargs="+", type=float, default=None)
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO)
+    from .utils.misc import full_f32
+    full_f32()
     if args.num_videos > 0:
         raise NotImplementedError(
             "--num-videos: video recording is not ported yet (ROADMAP queue A "

@@ -24,13 +24,14 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from .blocks import RMSNorm, dense
 from .voltron_vit import PatchEmbed, VoltronBlock, get_2d_sincos_pos_embed
 
-__all__ = ["MaskedTransformerImgDecoder"]
+__all__ = ["MaskedTransformerImgDecoder", "reconstruct_images"]
 
 
 class MaskedTransformerImgDecoder(nn.Module):
@@ -42,7 +43,7 @@ class MaskedTransformerImgDecoder(nn.Module):
                  num_images: int = 2, dtype: Optional[torch.dtype] = None):
         super().__init__()
         D = decoder_embed_dim
-        self.patch_size, self.in_channels = patch_size, in_channels
+        self.resolution, self.patch_size, self.in_channels = resolution, patch_size, in_channels
         self.num_images, self.dtype = num_images, dtype
         self.num_patches = (resolution // patch_size) ** 2
         self.n_keep = int(self.num_patches * (1 - mask_ratio))
@@ -129,3 +130,42 @@ class MaskedTransformerImgDecoder(nn.Module):
         zero_loss = (per_patch[:, 0] * mask).sum() / denom
         k_loss = (per_patch[:, 1] * mask).sum() / denom
         return (zero_loss + k_loss) / 2
+
+
+def reconstruct_images(decoder: MaskedTransformerImgDecoder, predictions: torch.Tensor,
+                       goal_images: torch.Tensor, mask: torch.Tensor, file_path=None):
+    """A grid of the first sample's frames side by side: masked patches
+    replaced by the predictions, visible patches kept from the target, the
+    CLIP normalization undone (JAX `reconstruct_images`,
+    masked_decoder.py:165-204; ref reconstruct_image,
+    masked_transformer_decoder.py:304-373). Host-side numpy and PIL, which
+    is imported here only.
+
+    predictions: (B, num_images, n_patches, ph*pw*C); goal_images:
+    (B, num_images, H, W, C) CLIP-normalized; mask: (B, n_patches), 1 =
+    masked. Returns the PIL image (saved to file_path when given)."""
+    from PIL import Image
+
+    from ..data.transforms import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD
+
+    preds = predictions.detach().float().cpu().numpy()
+    targets = decoder.patchify(goal_images.detach().float()).cpu().numpy()
+    mask_np = mask.detach().float().cpu().numpy()
+    n_img = preds.shape[1]
+    ph = pw = decoder.patch_size
+    grid = decoder.resolution // decoder.patch_size
+    c = decoder.in_channels
+
+    tiles = []
+    for img_idx in range(n_img):
+        combined = targets[0, img_idx].copy()
+        combined[mask_np[0] == 1] = preds[0, img_idx][mask_np[0] == 1]
+        img = combined.reshape(grid, grid, ph, pw, c)
+        img = img.transpose(0, 2, 1, 3, 4).reshape(grid * ph, grid * pw, c)
+        img = img * np.asarray(CLIP_IMAGE_STD) + np.asarray(CLIP_IMAGE_MEAN)
+        tiles.append(np.clip(img, 0, 1))
+    out = (np.concatenate(tiles, axis=1) * 255).astype(np.uint8)
+    pil = Image.fromarray(out)
+    if file_path is not None:
+        pil.save(file_path)
+    return pil

@@ -10,8 +10,11 @@ channel axis, as flax does on the last axis of NHWC, so the groups match.
 The public functions take NHWC images, as in JAX; inside, the convolutions
 run on NCHW in the `channels_last` memory format (NHWC in memory).
 A float32 convolution on the card runs in TF32 unless
-`torch.backends.cudnn.allow_tf32` is False; the comparisons in
-`chip_smoke.py` set it so.
+`torch.backends.cudnn.allow_tf32` is False (PyTorch's default is True).
+This module leaves the flag alone: `training.train`, `training.main`,
+`evaluate.main` and the extraction CLI set it False (`utils.misc.full_f32`),
+so they run the full-float32 convolutions the parity tests and
+`chip_smoke.py` check.
 """
 
 from __future__ import annotations

@@ -1,24 +1,50 @@
-"""The run config of the training entry point (port of the config part of
-`mdt_policy_tpu/training.py`, `:35-228`): the dataclasses, `load_config`
-(YAML plus dotted key=value overrides) and `_make_agent`, copied so that a
-`config.yaml` written by either package loads in the other unchanged.
+"""Training entry point of the port (port of `mdt_policy_tpu/training.py`):
 
-Fields that only the JAX runtime reads (`trainer.devices`,
-`trainer.profile_steps`, `trainer.aot_step_cache`, `distributed.*`) load as
-data and change nothing here. The dotted factory paths of `task_rollout`
-(`env_target`, `oracle_target`) are carried as data and never imported.
-`train()` and `main()` are not ported yet (ROADMAP queue A item 4, "Data
-pipeline and training runtime").
+    python -m mdt_policy_tpu_torch.training --config conf.yaml \
+        data.root_data_dir=/data/task_D_D trainer.max_epochs=20 [--device cpu]
+
+The run config (the dataclasses, `load_config`: YAML plus dotted key=value
+overrides, `_make_agent`) is copied, so that a `config.yaml` written by
+either package loads in the other unchanged. `train(cfg, device=None)` is
+the JAX loop on one device (default CUDA): a dual-stream CALVIN loader (or
+synthetic batches when `data.root_data_dir` is None) feeding a side-stream
+prefetcher, `train_step` and `validation_step` of either family, the EMA,
+per-epoch checkpoints with auto-resume, `metrics.csv`, a recon grid a
+validation, the divergence guard and a `torch.profiler` window. It runs
+float32 matmuls and convolutions in full float32, not TF32
+(`utils.misc.full_f32`), and cuDNN's deterministic algorithms, and records
+the flags in `system_info.json`.
+
+Not ported: training-time rollouts (`rollout`, `task_rollout`: ROADMAP queue
+A item 5, "Training-time evaluation") and several devices
+(`distributed.*`, `trainer.devices` > 1: item 7, "Multi-GPU data
+parallel"); `train()` raises NotImplementedError for either before any
+work. `trainer.aot_step_cache` is the TPU's compile cache and changes
+nothing here. The dotted factory paths of `task_rollout` (`env_target`,
+`oracle_target`) are carried as data and never imported.
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import dataclasses
+import itertools
+import json
+import logging
+import threading
+import time
 from pathlib import Path
 from typing import Any, Dict, Optional
 
+import numpy as np
+import torch
+
+logger = logging.getLogger(__name__)
+
 __all__ = ["DataConfig", "DistributedConfig", "RolloutConfig", "RunConfig",
-           "TaskRolloutConfig", "TrainerConfig", "load_config"]
+           "TaskRolloutConfig", "TrainerConfig", "TrainingDivergedError", "ema_weights",
+           "load_config", "main", "stream_generator", "stream_seed", "train"]
 
 
 @dataclasses.dataclass
@@ -68,16 +94,16 @@ class TrainerConfig:
     seed: int = 242
     log_every: int = 50
     keep_checkpoints: int = 1
-    # data-mesh size; None = every device that divides batch_size evenly
-    # (with a warning when some are dropped); set explicitly for strictness —
-    # a batch/device mismatch then errors instead of silently shrinking
+    # data-parallel devices; the port trains on one (None or 1), more
+    # raise NotImplementedError (ROADMAP queue A item 7)
     devices: Optional[int] = None
-    # "START:STOP" step range traced with jax.profiler into
-    # <run_dir>/profile (view in TensorBoard/Perfetto); None disables
+    # "START:STOP" step range traced with torch.profiler into
+    # <run_dir>/profile (trace.json for Perfetto, summary.json with the
+    # device's busy share); None disables
     profile_steps: Optional[str] = None
-    # warm-start: orbax checkpoint dir (a step dir or a run's checkpoints/
-    # dir) whose params partially initialize a FRESH run — every leaf with a
-    # matching path+shape is copied, the rest keep their random init (the
+    # warm-start: a port checkpoint (a step dir or a run's checkpoints/
+    # dir) whose params partially initialize a FRESH run — every tensor with
+    # a matching name+shape is copied, the rest keep their random init (the
     # reference's pretrain_chk + load_state_dict(strict=False),
     # mdt/training.py:53-54, utils.py:32-42). Ignored when auto-resuming.
     pretrain_checkpoint: Optional[str] = None
@@ -90,13 +116,8 @@ class TrainerConfig:
     # <run_dir>/media (+ wandb.Image when active) — the reference's store_img
     # validation branch (mdt/models/mdt_agent.py:398-417)
     log_recon_images: bool = True
-    # Serialized-executable cache dir for the train-step program (opt-in;
-    # None = off). On backends whose compile service costs minutes per fresh
-    # process (and ignores the persistent XLA cache), a warm restart
-    # deserializes the step executable in ~19 s instead of recompiling
-    # 140-560 s (measured, docs/BENCHMARKING.md). Any stale/foreign blob
-    # falls back to a normal compile. Relative paths resolve under the run
-    # dir; "auto" uses <run_dir>/aot_cache.
+    # the JAX package's serialized-executable cache of its compiled step
+    # (a TPU compile-service workaround); read as data, no effect here
     aot_step_cache: Optional[str] = None
 
 
@@ -213,3 +234,428 @@ def _make_agent(cfg: RunConfig):
     if cfg.agent == "mdt":
         return MDTConfig(**overrides)
     raise ValueError(f"unknown agent {cfg.agent!r}")
+
+
+# ---------------------------------------------------------------------------
+# Runtime
+# ---------------------------------------------------------------------------
+
+class TrainingDivergedError(RuntimeError):
+    """Loss went NaN/inf; the run halted without checkpointing the
+    poisoned state."""
+
+
+# the random streams of a run (see `stream_seed`)
+STREAMS = {"init": 0, "aug": 1, "step": 2, "val": 3, "recon": 4}
+
+
+def stream_seed(seed: int, stream: str, index: int) -> int:
+    """The seed of one generator of a run: a fixed pure function of
+    (`trainer.seed`, stream, index), the 63 high bits of
+    `numpy.random.SeedSequence([seed, STREAMS[stream], index])`'s first
+    64-bit word. `seed` and `index` must be non-negative."""
+    word = np.random.SeedSequence([seed, STREAMS[stream], index]).generate_state(1, np.uint64)[0]
+    return int(word) >> 1
+
+
+def stream_generator(seed: int, stream: str, index: int, device) -> torch.Generator:
+    """A fresh `torch.Generator` on `device` seeded with `stream_seed`."""
+    return torch.Generator(device).manual_seed(stream_seed(seed, stream, index))
+
+
+def _check_ported(cfg: RunConfig) -> None:
+    if cfg.rollout.enabled or cfg.task_rollout.enabled:
+        raise NotImplementedError(
+            "rollout.enabled / task_rollout.enabled: training-time rollouts are not "
+            "ported yet (ROADMAP queue A item 5, 'Training-time evaluation')")
+    if cfg.distributed.enabled or (cfg.trainer.devices or 1) > 1:
+        raise NotImplementedError(
+            "distributed.enabled / trainer.devices > 1: the port trains on one device "
+            "(ROADMAP queue A item 7, 'Multi-GPU data parallel')")
+
+
+def _synthetic_batch(rng: np.random.Generator, B: int, data_cfg: DataConfig,
+                     agent_cfg):
+    hs, hg = data_cfg.synthetic_static_hw, data_cfg.synthetic_gripper_hw
+    ctx, vocab = agent_cfg.clip_context_length, agent_cfg.clip_vocab_size
+    def scope():
+        return {
+            "rgb_static": rng.integers(0, 255, (B, 2, hs, hs, 3)).astype(np.uint8),
+            "rgb_gripper": rng.integers(0, 255, (B, 2, hg, hg, 3)).astype(np.uint8),
+            "gen_static": rng.integers(0, 255, (B, hs, hs, 3)).astype(np.uint8),
+            "gen_gripper": rng.integers(0, 255, (B, hg, hg, 3)).astype(np.uint8),
+            "actions": rng.normal(size=(B, 10, 7)).astype(np.float32),
+            "lang_tokens": rng.integers(1, vocab, (B, ctx)).astype(np.int32),
+        }
+    return {"vis": scope(), "lang": scope()}
+
+
+def _real_loaders(cfg: RunConfig, split: str = "training", context_length: int = 77,
+                  vocab_size: Optional[int] = None, start_batch: int = 0,
+                  include_scene_obs: bool = False):
+    """The {'vis', 'lang'} loaders of a split (JAX `_real_loaders`,
+    training.py:267-314), one process: shard 0 of 1."""
+    from .data.dataset import CalvinDataset
+    from .data.loader import BatchLoader, DualStreamLoader
+    from .utils.clip_tokenizer import tokenize as _tokenize
+
+    def tokenize(texts, n):
+        ids = _tokenize(texts, n)
+        # an out-of-range id would index past the embedding table: fail
+        # loudly at the host seam instead
+        if vocab_size is not None and ids.max() >= vocab_size:
+            raise ValueError(
+                f"tokenized id {int(ids.max())} >= agent clip_vocab_size "
+                f"{vocab_size}; the agent's text tower is too small for real "
+                "CLIP-BPE text")
+        return ids
+
+    root = Path(cfg.data.root_data_dir) / split
+    kw = dict(lang_folder=cfg.data.lang_folder,
+              obs_seq_len=cfg.data.obs_seq_len,
+              action_seq_len=cfg.data.action_seq_len,
+              min_window_size=cfg.data.min_window_size,
+              max_window_size=cfg.data.max_window_size,
+              img_gen_frame_diff=cfg.data.img_gen_frame_diff,
+              window_sampling_strategy=cfg.data.window_sampling_strategy,
+              use_extracted_rel_actions=cfg.data.use_extracted_rel_actions,
+              use_extracted_frames=cfg.data.use_extracted_frames,
+              use_extracted_embeddings=cfg.data.use_extracted_embeddings,
+              # validation keeps clean embeddings (CalvinDataset also guards
+              # on its own `validation` flag; this keeps the intent explicit)
+              embedding_aug_variants=(cfg.data.embedding_aug_variants
+                                      if split == "training" else 0),
+              proprio=cfg.data.proprio,
+              depth_keys=tuple(cfg.data.depth_keys),
+              include_scene_obs=include_scene_obs,
+              seed=cfg.trainer.seed)
+    shard = dict(shard_index=0, num_shards=1, num_workers=cfg.data.num_workers,
+                 start_batch=start_batch)
+    vis = BatchLoader(CalvinDataset(root, key="vis", **kw), cfg.trainer.batch_size,
+                      seed=cfg.trainer.seed, **shard)
+    lang = BatchLoader(CalvinDataset(root, key="lang", **kw), cfg.trainer.batch_size,
+                       seed=cfg.trainer.seed + 1, tokenizer=tokenize,
+                       context_length=context_length, **shard)
+    return DualStreamLoader(vis, lang)
+
+
+def _load_pretrain_params(path: str) -> Dict[str, torch.Tensor]:
+    """The net's `state_dict` of a port checkpoint, on the host: `path` is a
+    step dir or a run's checkpoints/ dir (newest step used)."""
+    from .utils.checkpoint import STATE_FILE, latest_checkpoint
+
+    p = Path(path)
+    if not (p / STATE_FILE).exists():
+        newest = latest_checkpoint(p)
+        if newest is None:
+            raise FileNotFoundError(f"no checkpoint under {p}")
+        p = newest
+    tree = torch.load(p / STATE_FILE, map_location="cpu", weights_only=True)
+    if "params" not in tree:
+        raise ValueError(f"checkpoint {p} has no 'params'")
+    return tree["params"]
+
+
+def _write_system_info(run_dir: Path, device: torch.device) -> None:
+    """Software/hardware snapshot into <run_dir>/system_info.json (the
+    reference's startup system-info dump, mdt/training.py:58): Python, torch,
+    CUDA, the training device, the cards' names and count, and the two TF32
+    flags."""
+    import platform
+    import socket
+
+    from .utils.misc import print_system_env_info
+    info = {**print_system_env_info(), "hostname": socket.gethostname(),
+            "training_device": str(device), "platform": platform.platform()}
+    (run_dir / "system_info.json").write_text(json.dumps(info, indent=2))
+
+
+@contextlib.contextmanager
+def ema_weights(state):
+    """The net's trainables swapped for the EMA tensors inside the block (the
+    JAX loop passes `state.ema_params` to validation); the live tensors are
+    swapped back, the same objects, bit for bit, on leaving it. Nothing
+    may step the optimizer inside."""
+    swapped = []
+    try:
+        for name, p in state.net.trainable_parameters():
+            swapped.append((p, p.data))
+            p.data = state.ema[name]
+        yield
+    finally:
+        for p, live in swapped:
+            p.data = live
+
+
+def _log_recon_images(agent_cfg, net, vbatch, run_dir: Path, mlog, step: int,
+                      generator: torch.Generator) -> None:
+    """One masked-foresight reconstruction grid (first validation batch, lang
+    scope) under <run_dir>/media (JAX `_log_recon_images`,
+    training.py:754-785), from the weights the caller has swapped in.
+    Best-effort: a missing PIL or a batch without foresight frames logs a
+    warning and the run goes on."""
+    try:
+        from .agents.mdtv_agent import reconstruction_forward
+        from .models.masked_decoder import reconstruct_images
+        scope = "lang" if "lang" in vbatch else sorted(vbatch)[0]
+        b = vbatch[scope]
+        if "gen_static" not in b:
+            return
+        n_patches = (agent_cfg.gen_img_res // agent_cfg.gen_patch_size) ** 2
+        mask_noise = torch.rand((b["actions"].shape[0], n_patches), generator=generator,
+                                device=generator.device)
+        goal_imgs, recon, mask = reconstruction_forward(net, b, mask_noise)
+        media = run_dir / "media"
+        media.mkdir(parents=True, exist_ok=True)
+        path = media / f"img_gen_pred_step{step}.png"
+        reconstruct_images(net.gen_img, recon, goal_imgs, mask, file_path=path)
+        mlog.log_image("generated_img", path, step)
+    except Exception as e:  # a broken grid must not kill the run
+        logger.warning("recon image logging skipped: %s", e)
+
+
+def train(cfg: RunConfig, device=None):
+    """Train per `cfg` on `device` (default CUDA; raises without one unless
+    the CPU is named) and return the final `TrainState`. The runtime
+    guarantees of the JAX loop (training.py:370-720):
+
+    * Signals: SIGTERM/SIGINT handlers are installed first; the first signal
+      finishes the step, saves with `wait=True` and returns; a second falls
+      through to the previous handler. They are restored on return.
+    * The run directory `<log_dir>/<run_name>` gets `config.yaml` (which
+      both packages' `load_config` read back unchanged), `system_info.json`
+      and `metrics.csv`; checkpoints go under `checkpoints/` every epoch
+      (none with `keep_checkpoints=0`), and the run resumes from the newest
+      one: the training loader fast-forwards to batch `step`, the validation
+      loader past the batches the run had already consumed.
+    * Random numbers: each draw comes from a generator of its own, seeded by
+      `stream_seed(trainer.seed, stream, index)`, never one carried across
+      steps: "init" 0 (the random weights, on the host), "aug" i (the train
+      pipeline's shifts and noise of the i-th training batch, every scope
+      in sorted order), "step" s (the draws of step s), "val" s *
+      limit_val_batches + v (validation batch v after step s: its
+      preprocessing, then its step's draws), "recon" s (the recon grid's
+      mask). The data's numpy RNG is `trainer.seed + 0` (process 0 in JAX).
+      So a resumed run draws what an uninterrupted one draws.
+    * Validation runs at each epoch's end on the EMA weights (`ema_weights`),
+      and so does the recon grid; `best.json` is not written (no rollout).
+    * Metrics reach the host only every `log_every` steps; there a
+      non-finite loss raises `TrainingDivergedError` (`halt_on_nonfinite`),
+      before any save of that state. `profile_steps` "START:STOP" traces
+      those steps with torch.profiler into `<run_dir>/profile`.
+    * Synthetic batches when `data.root_data_dir` is None; a warm start from
+      `trainer.pretrain_checkpoint` on a fresh run; cache mode
+      (`data.use_extracted_embeddings`) for the `mdtv` agent only.
+    """
+    import signal
+    stop_requested = threading.Event()
+    prev_handlers = {}
+
+    def _on_signal(signum, frame):
+        logger.warning("signal %d: checkpointing after the current step", signum)
+        stop_requested.set()
+        signal.signal(signum, prev_handlers.get(signum, signal.SIG_DFL))
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            prev_handlers[sig] = signal.signal(sig, _on_signal)
+        except ValueError:  # not the main thread (in-process tests)
+            break
+    try:
+        return _train(cfg, device, stop_requested)
+    finally:
+        for sig, h in prev_handlers.items():
+            signal.signal(sig, h)
+
+
+def _train(cfg: RunConfig, device, stop_requested: threading.Event):
+    from .agents import (init_random_, init_train_state, make_agent_net, train_step,
+                         validation_step)
+    from .agents.mdtv_agent import default_device
+    from .data.loader import DevicePrefetcher, Preprocessor
+    from .utils.checkpoint import Checkpointer, latest_checkpoint
+    from .utils.logging_utils import MetricsLogger
+    from .utils.misc import full_f32, initialize_pretrained_weights
+    from .utils.profiling import trace
+
+    _check_ported(cfg)
+    if cfg.data.use_extracted_embeddings and cfg.agent != "mdtv":
+        raise ValueError(
+            "data.use_extracted_embeddings requires agent=mdtv: only its "
+            "camera towers are frozen constants whose outputs can be cached "
+            "(the mdt agent TRAINS its ResNet encoders)")
+    device = default_device(device)
+    full_f32()
+    # deterministic convolution algorithms: free to choose, cuDNN made an
+    # MDT run and its resumption differ in the ResNets' gradients' last
+    # bits on the card, which AdamW turns into different updates
+    torch.backends.cudnn.deterministic = True
+    if cfg.trainer.aot_step_cache:
+        logger.info("trainer.aot_step_cache=%r has no effect: that cache holds the JAX "
+                    "package's compiled TPU step", cfg.trainer.aot_step_cache)
+
+    import yaml
+    run_name = cfg.run_name or time.strftime("%Y-%m-%d_%H-%M-%S")
+    run_dir = Path(cfg.log_dir) / run_name
+    run_dir.mkdir(parents=True, exist_ok=True)
+    (run_dir / "config.yaml").write_text(yaml.safe_dump(dataclasses.asdict(cfg)))
+    _write_system_info(run_dir, device)
+    logger.info("run dir: %s | device %s", run_dir, device)
+
+    agent_cfg = _make_agent(cfg)
+    seed, tcfg = cfg.trainer.seed, cfg.trainer
+    np_rng = np.random.default_rng(seed + 0)
+
+    # the resume point comes before the loaders: the data stream
+    # fast-forwards to exactly the batch the preempted run would see next
+    checkpointing = tcfg.keep_checkpoints > 0
+    resume_step, resuming = 0, False
+    if checkpointing:
+        last = latest_checkpoint(run_dir / "checkpoints")
+        if last is not None:
+            resume_step, resuming = int(last.name), True
+
+    pp = Preprocessor(static_size=agent_cfg.img_size,
+                      gripper_size=min(84, agent_cfg.img_size),
+                      gen_size=agent_cfg.gen_img_res, device=device)
+
+    def device_batch(generator, raw):
+        return {scope: pp.train_batch(raw[scope], generator=generator)
+                for scope in sorted(raw)}
+
+    with contextlib.ExitStack() as stack:
+        mlog = MetricsLogger(run_dir, config=dataclasses.asdict(cfg))
+        stack.callback(mlog.finish)
+        val_iter = None
+        if cfg.data.root_data_dir is None:
+            logger.warning("no root_data_dir configured: SYNTHETIC data mode")
+            raw_iter = itertools.repeat(_synthetic_batch(np_rng, tcfg.batch_size, cfg.data,
+                                                         agent_cfg))
+        else:
+            loader = _real_loaders(cfg, "training", agent_cfg.clip_context_length,
+                                   agent_cfg.clip_vocab_size, start_batch=resume_step)
+            stack.callback(loader.close)
+            raw_iter = iter(loader)
+            if (Path(cfg.data.root_data_dir) / "validation").exists():
+                # by step s the run has consumed limit_val_batches per epoch
+                val_consumed = resume_step // tcfg.steps_per_epoch * tcfg.limit_val_batches
+                val_loader = _real_loaders(cfg, "validation", agent_cfg.clip_context_length,
+                                           agent_cfg.clip_vocab_size,
+                                           start_batch=val_consumed)
+                stack.callback(val_loader.close)
+                val_iter = iter(val_loader)
+
+        net = make_agent_net(agent_cfg, device=device)
+        init_random_(net, stream_generator(seed, "init", 0, "cpu"))
+        if tcfg.pretrain_checkpoint and not resuming:
+            pre = _load_pretrain_params(tcfg.pretrain_checkpoint)
+            net.load_state_dict(initialize_pretrained_weights(net.state_dict(), pre))
+            logger.info("warm-started from %s", tcfg.pretrain_checkpoint)
+        state = init_train_state(net)  # the EMA starts at the (warm-started) weights
+        ckpt = Checkpointer(run_dir / "checkpoints", keep=tcfg.keep_checkpoints) \
+            if checkpointing else None
+        if ckpt is not None:
+            stack.callback(ckpt.wait)  # settle an in-flight save before returning
+        if resuming:  # a step-0 checkpoint counts too
+            ckpt.restore(state)
+            logger.info("auto-resumed from step %d", state.step)
+
+        prefetcher = DevicePrefetcher(
+            raw_iter, lambda i, raw: device_batch(stream_generator(seed, "aug", i, device), raw),
+            device=device, depth=2, start_index=resume_step)
+        stack.callback(prefetcher.close)
+
+        profile_range, profiling = None, False
+        profiler = stack.enter_context(contextlib.ExitStack())
+        if tcfg.profile_steps:
+            lo, _, hi = str(tcfg.profile_steps).partition(":")
+            if not hi:
+                raise ValueError(f"trainer.profile_steps={tcfg.profile_steps!r}"
+                                 " must be 'START:STOP' (quote it in YAML)")
+            profile_range = (int(lo), int(hi))
+            if profile_range[1] <= profile_range[0]:
+                raise ValueError(f"trainer.profile_steps={tcfg.profile_steps!r}"
+                                 " must be START:STOP with STOP > START")
+
+        total_steps = tcfg.max_epochs * tcfg.steps_per_epoch
+        t_last = time.perf_counter()
+        while state.step < total_steps:
+            step = state.step
+            # a resume inside the range still traces the remaining steps
+            if (profile_range is not None and not profiling
+                    and profile_range[0] <= step < profile_range[1]):
+                profiler.enter_context(trace(run_dir / "profile", device=device))
+                profiling = True
+            batch = next(prefetcher)
+            metrics = train_step(state, batch,
+                                 generator=stream_generator(seed, "step", step, device))
+            if profiling and step + 1 >= profile_range[1]:
+                profiler.close()
+                profile_range, profiling = None, False
+
+            if (step + 1) % tcfg.log_every == 0:
+                dt = (time.perf_counter() - t_last) / tcfg.log_every
+                t_last = time.perf_counter()
+                metrics = {k: float(v) for k, v in metrics.items()}
+                metrics["perf/steps_per_sec"] = 1.0 / dt
+                metrics["perf/chunks_per_sec"] = 2 * tcfg.batch_size / dt
+                mlog.log(metrics, step + 1)
+                logger.info("step %d | loss %.4f | %.1f chunks/s", step + 1,
+                            metrics["train/total_loss"], metrics["perf/chunks_per_sec"])
+                if tcfg.halt_on_nonfinite and not np.isfinite(metrics["train/total_loss"]):
+                    raise TrainingDivergedError(
+                        f"non-finite loss {metrics['train/total_loss']} at step "
+                        f"{step + 1}; last checkpoint precedes this step — "
+                        "lower the lr or inspect the data shard")
+
+            if (step + 1) % tcfg.steps_per_epoch == 0:
+                # validation on the validation split when there is one, else
+                # on the current train batch (synthetic smoke mode), on the
+                # EMA weights like the reference's limit_val_batches=4
+                val_metrics: Dict[str, float] = {}
+                first_vbatch = None
+                with ema_weights(state):
+                    for vb in range(tcfg.limit_val_batches):
+                        gen = stream_generator(seed, "val", step * tcfg.limit_val_batches + vb,
+                                               device)
+                        vbatch = device_batch(gen, next(val_iter)) if val_iter is not None \
+                            else batch
+                        if first_vbatch is None:
+                            first_vbatch = vbatch
+                        for k, v in validation_step(net, vbatch, generator=gen).items():
+                            val_metrics[k] = val_metrics.get(k, 0.0) + float(v)
+                    if tcfg.log_recon_images:
+                        _log_recon_images(agent_cfg, net, first_vbatch, run_dir, mlog, step + 1,
+                                          stream_generator(seed, "recon", step, device))
+                mlog.log({k: v / tcfg.limit_val_batches for k, v in val_metrics.items()},
+                         step + 1)
+                if checkpointing:
+                    ckpt.save(state)
+                    logger.info("epoch %d checkpointed at step %d",
+                                (step + 1) // tcfg.steps_per_epoch, step + 1)
+
+            if stop_requested.is_set():
+                if checkpointing:
+                    ckpt.save(state, wait=True)  # durable before returning
+                    logger.warning("preemption checkpoint saved at step %d; "
+                                   "resume by rerunning with the same run_name", state.step)
+                break
+    return state
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--config", default=None, help="YAML config path")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; raises without one unless "
+                         "the CPU is named)")
+    ap.add_argument("overrides", nargs="*", help="dotted key=value overrides")
+    args = ap.parse_args(argv)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    train(load_config(args.config, args.overrides), device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -226,7 +226,9 @@ def test_port_imports_without_jax():
             "'evaluation.policy_adapter', 'evaluation.batched_rollout', "
             "'ops.pair_attention', 'tools.perf_probe', 'tools.attn_kernel_experiment', "
             "'tools.attn_kernel_round3', 'training', 'evaluate', 'utils.checkpoint', "
-            "'utils.from_jax', 'evaluation.env_adapter'):\n"
+            "'utils.from_jax', 'evaluation.env_adapter', 'data.windows', 'data.proprio', "
+            "'data.dataset', 'data.memory_cache', 'data.extract', 'utils.logging_utils', "
+            "'utils.misc', 'utils.profiling'):\n"
             "    assert 'mdt_policy_tpu_torch.' + needed in names, needed\n"
             "for name in names + ['chip_smoke']:\n"
             "    __import__(name)\n"
