@@ -13,8 +13,9 @@ both families' train states through `Checkpointer`, the evaluate CLI
 (`mdt_policy_tpu_torch.evaluate.main`) on those run directories, the
 frozen-tower embedding extraction through `extract_embeddings` and
 `extract_lang_goals` over a synthetic split, and the cache-mode train step
-from the rows it wrote, and `train()` and the extraction CLI over an
-on-disk split. Prints one JSON line per phase:
+from the rows it wrote, `train()` and the extraction CLI over an on-disk
+split, `train()` with its training-time rollouts, rollout videos, and the
+train step in an NCCL process group. Prints one JSON line per phase:
 
   1. device   card name and power limit (nvidia-smi); TF32 off for f32
               matmuls and convolutions.
@@ -153,6 +154,35 @@ on-disk split. Prints one JSON line per phase:
               step's device ms (and with cuDNN free to choose algorithms).
               The B3 and B2 rows of 3 also carry the library call's device
               ms (`library_device_ms`).
+ 22. train_rollout  (runs before tf32, on train_cli's split) `train()` of
+              MDT-V at B=128 per stream, 2 epochs of 3 steps, with both
+              training-time rollouts after epoch 2: the chain rollout (4
+              chains of 360-step episodes on the fake env at CALVIN's
+              camera sizes; the port's `make_calvin_env` and
+              `make_task_oracle` patched to it and to the rollout phase's
+              scripted oracle) and the task rollout (this script's
+              `make_task_env` and `make_task_oracle`); the rollout's env
+              steps/s and replans inside `train()`, the `eval_lh/*` and
+              `tasks/*` rows of metrics.csv, the step `best.json` names; the
+              first rollout chunk bit-equal to an eager `MDTVPolicy`'s on
+              the EMA weights from the rollout's generator; B2 and B3
+              RMSNorm launches exactly the steps', validations' and
+              replans' worth; the final trainables and EMA bit-equal to the
+              same run with both rollouts off.
+ 23. video    `RolloutVideo` over 40 fake-env frames, then `evaluate.main`
+              with `--num-videos 1` on that run directory: with PIL the GIFs'
+              frame counts, without it the ImportError that names PIL from
+              each call that needs it (`"pil": false`).
+ 24. ddp      (after tf32) in a child process (`--ddp-child`), per family
+              at B=128 per stream: the plain train step and the same step
+              in an NCCL group of one rank, from one state and generator:
+              metrics, gradients, trainables and EMA bit-equal; the
+              all-reduce's bytes and ms, the all-gather's, the step's ms
+              without and with the group. With two cards, `train()` on 2
+              NCCL ranks (`--ddp-rank` children) for 3 steps: the ranks'
+              trainables bit-identical after every step, the first step's
+              losses within 1e-5 of one process's at the global batch;
+              with one, `"ranks_2": "not run: 1 device"`.
 
 Then the kernel summary line, and last `{"ok": true, "device": ...}`. The
 summary holds each kernel at its main shape, with its launches on every
@@ -187,6 +217,13 @@ does the same for the microbench's kernels: each tree's V1 and V3 variants
 B1 at VARIANT_BATCHES' Voltron and CLIP vision shapes (event ms a call,
 device ms from the profiler), and B1's device ms at its two step shapes;
 one line a (tree, kernel, shape), then a summary line of the device ms.
+
+    python3 chip_smoke.py --ddp-only
+
+runs the device and build phases and then the ddp phase alone: on a
+machine with two or more cards, 2 NCCL ranks of `train()` besides the
+world-size-1 check, with each rank's step ms and the collectives' ms at 2
+ranks.
 """
 
 from __future__ import annotations
@@ -333,6 +370,7 @@ TOWER_BLOCKS = {"voltron": ("rms", 1e-8, True, False, "swishglu"),
 # device kernels per half-block call: B4 norm pass, qkv GEMM, attention core,
 # projection GEMM; B5 norm pass, W1 GEMM, W2 GEMM
 HALFBLOCK_KERNELS_PER_CALL = {"b4": 4, "b5": 3}
+PROFILE_TRIES = 3  # profiler windows before a kernel count that comes up short fails
 # B4/B5 bounds relative to max(1, max|ref|). Against the plain version in
 # bf16, which rounds at the same points: two bf16 ulps (7.8e-3 each at the
 # top of a binade: the output's own rounding and a flip of the branch before
@@ -1890,9 +1928,17 @@ def phase_kernel_halfblocks(torch, device):
             bounds[label] = HALFBLOCK_TOL[label] * max(1.0, r.abs().max().item())
         del plain, f64
         iters = 20
-        split = kernels_by_name(torch, lambda: fn(*tensors, **kw), 5)
-        ours = [v for name, v in split.items() if "halfblock_" in name]
-        per_call = sum(n for _, n in ours)
+        # the profiler on the card's machine (torch 2.11) has lost device
+        # events of a window; a window that shows fewer kernels a call than
+        # the call launches is profiled again, up to PROFILE_TRIES windows:
+        # the check still needs one complete window with exactly the
+        # expected kernels
+        for _ in range(PROFILE_TRIES):
+            split = kernels_by_name(torch, lambda: fn(*tensors, **kw), 5)
+            ours = [v for name, v in split.items() if "halfblock_" in name]
+            per_call = sum(n for _, n in ours)
+            if per_call >= HALFBLOCK_KERNELS_PER_CALL[kernel]:
+                break
         n_bytes, flops = halfblock_cost(kernel, tensors, kw)
         bms, by = bound_ms(n_bytes, flops, "bfloat16")
         row = {"phase": "kernel", "kernel": fn.__name__, "shape": tower,
@@ -2452,6 +2498,495 @@ def phase_tf32(torch, device, smi):
     return row
 
 
+# train_rollout: the training-time rollouts once, after epoch 2 of 2
+TRAIN_ROLLOUT_EPOCHS = 2
+# the task rollout: demos discovered among these tasks, each solved this many
+# env steps into its rollout, episodes of TASK_EP_LEN
+TASK_DEMO_TASKS = ("open_drawer", "turn_on_led", "push_red_block_left")
+TASK_SOLVE_AT, TASK_EP_LEN = 15, 60
+VIDEO_FRAMES, VIDEO_EP_LEN = 40, 30  # RolloutVideo alone; the evaluate CLI's episode
+DDP_TIMED_STEPS = 10  # a route of the ddp phase's step timing
+DDP_CHILD_TIMEOUT_S = 600
+TWO_RANK_LOSS_REL_TOL = 1e-5
+
+
+class TaskOracle:
+    """The task rollout's oracle: demo discovery gives each demo one of
+    TASK_DEMO_TASKS, read off its end state's first scene value; a rollout
+    solves its task TASK_SOLVE_AT env steps in."""
+
+    def get_task_info(self, start_info, end_info):
+        return {TASK_DEMO_TASKS[int(abs(end_info["scene_obs"][0]) * 10) % len(TASK_DEMO_TASKS)]}
+
+    def get_task_info_for_set(self, start_info, current_info, subtasks):
+        return set(subtasks) if current_info["t"] - start_info["t"] >= TASK_SOLVE_AT else set()
+
+
+def make_task_env(dataset_path=None):
+    """`task_rollout.env_target` of the train_rollout phase: the fake env at
+    CALVIN's camera sizes."""
+    from mdt_policy_tpu_torch.evaluation import FakeEnv
+    return FakeEnv(img_hw=200, gripper_hw=84, seed=7)
+
+
+def make_task_oracle():
+    """`task_rollout.oracle_target` of the train_rollout phase."""
+    return TaskOracle()
+
+
+def _phase_calls(torch, name, fn, log, plans, captures):
+    """`fn` wrapped to log, per call that returns metrics, its seconds and
+    the policy replans and graph captures it made."""
+    def wrapper(*args, **kwargs):
+        p0, c0, t0 = plans.call_count, captures.call_count, time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        if out is not None:
+            log[name] = {"seconds": time.perf_counter() - t0, "replans": plans.call_count - p0,
+                         "captures": captures.call_count - c0, "metrics": out}
+        return out
+    return wrapper
+
+
+def phase_train_rollout(torch, device, launches: Launches, smi, root):
+    """`train()` of MDT-V at the production config over the synthetic split
+    under `root` (B=128 per stream), 2 epochs of CLI_STEPS_PER_EPOCH steps,
+    with both training-time rollouts after epoch 2: the chain rollout
+    (ROLLOUT_CHAINS chains of ROLLOUT_EP_LEN-step episodes; the port's
+    `make_calvin_env` and `make_task_oracle` patched to the fake env at
+    CALVIN's camera sizes and phase_rollout's scripted oracle) and the task
+    rollout (this script's `make_task_env` and `make_task_oracle`). Checks:
+    the rollout's results, env steps and replans follow the oracle's rule;
+    `best.json` names the epoch's step; the first rollout chunk equals, bit
+    for bit, an eager `MDTVPolicy`'s on the EMA weights from the rollout's
+    generator; B2 and B3 RMSNorm launch exactly the steps', validations'
+    and replans' (warm-ups included) worth; and the run's final trainables
+    and EMA (every tensor of the train state: parameters, EMA, Adam's
+    moments and steps) equal, bit for bit, those of the same run with both
+    rollouts off."""
+    from mdt_policy_tpu_torch import training
+    from mdt_policy_tpu_torch.agents import MDTVPolicy
+    from mdt_policy_tpu_torch.evaluation import (FakeEnv, ScriptedOracle, TASKS, annotations,
+                                                 env_adapter, get_sequences)
+    from mdt_policy_tpu_torch.training import (RolloutConfig, TaskRolloutConfig, ema_weights,
+                                               stream_generator, train)
+    log_dir = os.path.join(root, "runs")
+    cfg = lambda name: _run_config("mdtv", log_dir, name, root, TRAIN_ROLLOUT_EPOCHS,
+                                   log_recon_images=False)
+    on, off = cfg("rollout_on"), cfg("rollout_off")
+    on.rollout = RolloutConfig(enabled=True, num_sequences=ROLLOUT_CHAINS,
+                               ep_len=ROLLOUT_EP_LEN, rollout_freq=1, skip_epochs=1)
+    on.task_rollout = TaskRolloutConfig(
+        enabled=True, skip_epochs=1, rollout_freq=1, rollouts_per_task=1, ep_len=TASK_EP_LEN,
+        discovery_batches=1, id_selection_strategy="select_first",
+        env_target=f"{__name__}.make_task_env", oracle_target=f"{__name__}.make_task_oracle")
+    never = get_sequences(ROLLOUT_CHAINS)[0][1][2]
+    oracle = ScriptedOracle({t: ROLLOUT_SOLVE_AT for t in TASKS if t != never})
+    first = {}
+    real_plan = MDTVPolicy.plan
+
+    def plan(self, obs, goal):
+        out = real_plan(self, obs, goal)
+        if not first:  # the chain rollout's first replan
+            first.update(obs={k: v.clone() for k, v in obs.items()}, goal=copy.deepcopy(goal),
+                         chunk=out.clone())
+        return out
+    log = {}
+    launches.reset()
+    with contextlib.ExitStack() as stack:
+        enter = lambda *a, **k: stack.enter_context(mock.patch.object(*a, **k))
+        enter(env_adapter, "make_calvin_env",
+              lambda path: FakeEnv(img_hw=200, gripper_hw=84, seed=0))
+        enter(annotations, "make_task_oracle", lambda: oracle)
+        plans = enter(MDTVPolicy, "plan", autospec=True, side_effect=plan)
+        captures = enter(MDTVPolicy, "_capture", autospec=True, side_effect=MDTVPolicy._capture)
+        for name in ("_maybe_rollout", "_maybe_task_rollout"):
+            enter(training, name, _phase_calls(torch, name, getattr(training, name), log,
+                                               plans, captures))
+        calls = stack.enter_context(counting_steps(launches))
+        t0 = time.perf_counter()
+        state = train(on, device=device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    total = launches.read()
+    net_cfg = state.net.cfg
+    with ema_weights(state):
+        eager = MDTVPolicy(state.net, generator=stream_generator(5, "rollout", 2, device),
+                           cuda_graph=False)
+        chunk = eager.plan(first["obs"], first["goal"])
+    first_bit_equal = bool(torch.equal(chunk, first["chunk"]))
+    on_tensors = {k: v.detach().clone() for k, v in _state_tensors(state).items()}
+    run = os.path.join(log_dir, "rollout_on")
+    rows = _metrics_rows(os.path.join(run, "metrics.csv"))
+    with open(os.path.join(run, "checkpoints", "best.json")) as f:
+        best = json.load(f)
+    del state, eager
+    torch.cuda.empty_cache()
+    off_state = train(off, device=device)
+    off_tensors = _state_tensors(off_state)
+    mismatched = sorted(set(on_tensors) ^ set(off_tensors)) + [
+        k for k, v in on_tensors.items() if k in off_tensors and not torch.equal(v, off_tensors[k])]
+    del off_state, on_tensors, off_tensors
+    torch.cuda.empty_cache()
+
+    want = oracle_results(get_sequences(ROLLOUT_CHAINS), never)
+    want_steps, want_plans = expected_rollout(want, net_cfg.multistep)
+    lh, tasks = log["_maybe_rollout"], log["_maybe_task_rollout"]
+    lh_rows = [{k: v for k, v in r.items() if k.startswith("eval_lh/") or k == "step"}
+               for r in rows if "eval_lh/avg_seq_len" in r]
+    task_rows = [{k: v for k, v in r.items() if k.startswith("tasks/") or k == "step"}
+                 for r in rows if "tasks/average_sr" in r]
+    n_tasks = len([k for k in tasks["metrics"] if k.endswith("_vis_sr") and "average" not in k])
+    task_steps = n_tasks * 2 * TASK_SOLVE_AT  # one rollout a task a modality
+    per_run = expected_replan_launches(net_cfg, "mdtv")[1]
+    runs = plans.call_count + MDTVPolicy.WARMUP_CALLS * captures.call_count
+    exact = {"small_seq_mha": sum(c["small_seq_mha"] for c in calls["validation_step"])
+             + runs * per_run["small_seq_mha"],
+             "fused_rms_norm": sum(c["fused_rms_norm"] for c in calls["train_step"])
+             + sum(c["fused_rms_norm"] for c in calls["validation_step"])
+             + runs * per_run["fused_rms_norm"]}
+    row = {"phase": "train_rollout", "family": "mdtv", "batch_per_stream": TRAIN_BATCH,
+           "epochs": TRAIN_ROLLOUT_EPOCHS, "steps_per_epoch": CLI_STEPS_PER_EPOCH,
+           "chains": ROLLOUT_CHAINS, "ep_len": ROLLOUT_EP_LEN, "never_solves": never,
+           "rollout_seconds": lh["seconds"], "rollout_replans": lh["replans"],
+           "expected_replans": sum(want_plans), "rollout_env_steps": sum(want_steps),
+           "rollout_env_steps_per_s": sum(want_steps) / lh["seconds"],
+           "rollout_captures": lh["captures"], "eval_lh": lh_rows,
+           "expected_avg_seq_len": float(np.mean(want)),
+           "task_rollout_seconds": tasks["seconds"], "task_rollout_replans": tasks["replans"],
+           "task_rollout_env_steps": task_steps,
+           "task_rollout_env_steps_per_s": task_steps / tasks["seconds"],
+           "task_rollout_captures": tasks["captures"], "tasks": task_rows,
+           "best_json": best, "first_chunk_bit_equal_eager_on_ema": first_bit_equal,
+           "rollouts_off_bit_equal": not mismatched, "tensors_mismatched": mismatched[:5],
+           "train_steps_counted": len(calls["train_step"]),
+           "validations_counted": len(calls["validation_step"]),
+           "replan_runs": runs, "launches": total, "exact_expected": exact,
+           "seconds": seconds, "card": smi}
+    emit(row)
+    steps = TRAIN_ROLLOUT_EPOCHS * CLI_STEPS_PER_EPOCH
+    if not (lh_rows and lh_rows[-1]["eval_lh/avg_seq_len"] == float(np.mean(want))
+            and [r["step"] for r in lh_rows] == [steps] and lh["replans"] == sum(want_plans)
+            and best["step"] == steps and best["metric"] == float(np.mean(want))):
+        raise AssertionError(f"the chain rollout inside train() went wrong: {row}")
+    if not (n_tasks > 0 and [r["step"] for r in task_rows] == [steps]
+            and task_rows[0]["tasks/average_sr"] == 1.0):
+        raise AssertionError(f"the task rollout inside train() went wrong: {row}")
+    if not (first_bit_equal and not mismatched):
+        raise AssertionError(f"a rollout was not the EMA's, or it moved the run: {row}")
+    if any(total[k] != v for k, v in exact.items()) or total["fused_qkv_attention"] < runs * \
+            per_run["fused_qkv_attention"]:
+        raise AssertionError(f"train_rollout launches disagree with its steps and replans: {row}")
+    if len(calls["train_step"]) != steps or len(calls["validation_step"]) != TRAIN_ROLLOUT_EPOCHS:
+        raise AssertionError(f"train_rollout ran other steps than asked: {row}")
+    return total, run
+
+
+def _gif_frames(path):
+    from PIL import Image
+    with Image.open(path) as im:
+        return im.n_frames
+
+
+def phase_video(torch, device, launches: Launches, smi, run):
+    """`RolloutVideo` over VIDEO_FRAMES frames of a fake-env chain at
+    CALVIN's static camera size (a success border, a caption), then
+    `evaluate.main([... "--num-videos", "1"])` on the train_rollout run
+    directory (one chain, VIDEO_EP_LEN-step episodes, the CLI's
+    never-solving oracle). With PIL the GIFs are written and their frames
+    counted; without it each call that needs PIL must raise an ImportError
+    that names PIL ("pil": false), never skip the video."""
+    from mdt_policy_tpu_torch import evaluate
+    from mdt_policy_tpu_torch.evaluation import FakeEnv
+    from mdt_policy_tpu_torch.evaluation.video import RolloutVideo
+    try:
+        import PIL  # noqa: F401
+        pil = True
+    except ImportError:
+        pil = False
+    env = FakeEnv(img_hw=200, gripper_hw=84, seed=3)
+    env.reset()
+    rv = RolloutVideo(os.path.join(run, "video_phase"))
+    rv.new_video("chain_0", caption="smoke")
+    rv.new_subtask()
+    for _ in range(VIDEO_FRAMES):
+        rv.update(env.step(np.zeros(7, np.float32))[0]["rgb_obs"]["rgb_static"])
+    rv.draw_outcome(True)
+    args = ["--train-folder", run, "--fake-env", "--num-sequences", "1", "--device", str(device),
+            "--ep-len", str(VIDEO_EP_LEN), "--num-videos", "1"]
+    launches.reset()
+    raised = []
+    with contextlib.redirect_stdout(io.StringIO()):
+        for call in (lambda: rv.add_language_instruction("open the drawer"), rv.write,
+                     lambda: evaluate.main(args)):
+            try:
+                call()
+            except ImportError as e:
+                raised.append(str(e))
+    torch.cuda.synchronize()
+    total = launches.read()
+    gif = os.path.join(run, "evaluation", "videos", "lh-sequence_0.gif")
+    frames = (_gif_frames(os.path.join(run, "video_phase", "chain_0.gif")), _gif_frames(gif)) \
+        if pil and not raised else None
+    row = {"phase": "video", "pil": pil, "gif_frames": frames,
+           "expected_frames": [VIDEO_FRAMES, VIDEO_EP_LEN], "import_errors": raised,
+           "launches": total, "card": smi}
+    emit(row)
+    if pil and (raised or list(frames) != [VIDEO_FRAMES, VIDEO_EP_LEN]):
+        raise AssertionError(f"video phase: the GIFs are not what was recorded: {row}")
+    if not pil and not (len(raised) == 3 and all("PIL" in e for e in raised)):
+        raise AssertionError(f"video phase: without PIL every video call must raise: {row}")
+    return total
+
+
+def _flat(torch, tensors):
+    return torch.cat([t.detach().reshape(-1) for t in tensors])
+
+
+def ddp_child(device_type: str = "cuda", configs=None) -> int:
+    """`--ddp-child`: the world-size-1 NCCL check of the ddp phase, in its own
+    process (the group lives and dies here). Per family at the production
+    config, B=128 per stream: one plain train step, then, in a group of one
+    rank, the same step from the same state and generator; metrics,
+    gradients, trainables and EMA must be bit-equal. Then the all-reduce's
+    bytes and ms (CUDA events), the all-gather's forward and backward at the
+    contrastive features' shape, and the step's ms without and with the
+    group. One JSON line a family and one with the group steps' launches.
+    (`device_type` "cpu" and small `configs`, {family: config}, rehearse it
+    over gloo.)"""
+    import torch
+    sys.path.insert(0, REPO)
+    from mdt_policy_tpu_torch import parallel
+    from mdt_policy_tpu_torch.agents import MDTConfig, MDTVConfig, init_train_state, train_step
+    from mdt_policy_tpu_torch.training import DistributedConfig
+    device = torch.device(device_type, 0) if device_type == "cuda" else torch.device("cpu")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # as train() runs: free to choose, cuDNN's convolution algorithms give
+    # MDT's ResNet gradients other last bits from one step to the next
+    torch.backends.cudnn.deterministic = True
+    launches, group_launches = Launches(), None
+    configs = configs or {"mdtv": MDTVConfig(), "mdt": MDTConfig()}
+    for family, cfg in configs.items():
+        batch = make_train_batch(torch, cfg, TRAIN_BATCH, device)
+        out = {}
+        for route in ("plain", "group"):
+            if route == "group":
+                parallel.init_distributed(DistributedConfig(
+                    enabled=True, coordinator_address=f"localhost:{parallel.free_port()}",
+                    num_processes=1, process_id=0), device)
+                backend = torch.distributed.get_backend()
+                before = launches.read()
+            state = init_train_state(build_net(torch, cfg, device))
+            metrics = {k: float(v) for k, v in train_step(
+                state, batch, generator=torch.Generator(device).manual_seed(7)).items()}
+            torch.cuda.synchronize()
+            if route == "group":
+                after = launches.read()
+                delta = {k: after[k] - before[k] for k in after}
+                group_launches = delta if group_launches is None else \
+                    {k: group_launches[k] + delta[k] for k in delta}
+            trainable = [p for _, p in state.net.trainable_parameters()]
+            out[route] = {"metrics": metrics, "grads": _flat(torch, [p.grad for p in trainable]),
+                          "params": _flat(torch, trainable),
+                          "ema": _flat(torch, state.ema.values())}
+            gen = torch.Generator(device).manual_seed(8)
+            times = event_times(torch, lambda: train_step(state, batch, generator=gen),
+                                DDP_TIMED_STEPS, warmup=1)
+            out[route]["step_ms"] = times
+            if route == "group":
+                n_bytes = sum(p.grad.numel() * p.grad.element_size() for p in trainable)
+                reduce_ms = event_ms(lambda: parallel.all_reduce_gradients(trainable), 10, torch)
+                feats = torch.randn((TRAIN_BATCH, 1, cfg.latent_dim), device=device,
+                                    requires_grad=True)
+                gathered_ms = event_ms(lambda: parallel.all_gather_with_grad(feats), 10, torch)
+                back = torch.randn((TRAIN_BATCH, 1, cfg.latent_dim), device=device)
+                gather_bwd_ms = event_ms(
+                    lambda: parallel.all_gather_with_grad(feats).backward(back), 10, torch)
+                parallel.shutdown()
+            del state
+            torch.cuda.empty_cache()
+        plain, group = out["plain"], out["group"]
+        equal = {k: bool(torch.equal(plain[k], group[k])) for k in ("grads", "params", "ema")}
+        equal["metrics"] = plain["metrics"] == group["metrics"]
+        emit({"phase": "ddp", "family": family, "world_size": 1, "backend": backend,
+              "batch_per_stream": TRAIN_BATCH, "bit_equal": equal,
+              "losses": {k: v for k, v in group["metrics"].items() if k.endswith("loss")},
+              "all_reduce_bytes": n_bytes, "all_reduce_ms": reduce_ms,
+              "all_gather_shape": [TRAIN_BATCH, 1, cfg.latent_dim],
+              "all_gather_fwd_ms": gathered_ms, "all_gather_fwd_bwd_ms": gather_bwd_ms,
+              "step_ms_plain_p50": float(np.percentile(plain["step_ms"], 50)),
+              "step_ms_group_p50": float(np.percentile(group["step_ms"], 50)),
+              "step_ms_plain": plain["step_ms"], "step_ms_group": group["step_ms"]})
+        if not all(equal.values()):
+            raise AssertionError(f"{family}: the world-size-1 NCCL step differs from the "
+                                 f"plain one: {equal}")
+    emit({"phase": "ddp", "launches": group_launches})
+    return 0
+
+
+def _run_children(cmds, timeout: int):
+    """Run the commands at once, each in a session of its own; kill every
+    one's process group when all have ended or at the deadline. Returns
+    their stdouts; raises on a timeout or a non-zero exit."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              start_new_session=True) for cmd in cmds]
+    deadline = time.perf_counter() + timeout
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=max(1.0, deadline - time.perf_counter())))
+    finally:
+        for proc in procs:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, 9)
+    for proc, (out, err) in zip(procs, outs):
+        if proc.returncode != 0:
+            print(out[-4000:], err[-4000:], file=sys.stderr)
+            raise AssertionError(f"{proc.args} exited with {proc.returncode}")
+    return [out for out, _ in outs]
+
+
+def ddp_rank(rank: int, world: int, port: int, out: str) -> int:
+    """`--ddp-rank`: one rank of the ddp phase's multi-rank `train()`, joined
+    through torchrun's variables. After every step the trainables' bits are
+    held against every other rank's (their int32 words all-reduced by MAX
+    and by MIN must agree); the steps' averaged metrics and host ms (ending
+    in a synchronize), the first step's batch, and after the last step the
+    all-reduce's and the all-gather's ms on the card (CUDA events; the
+    gradients are then equal on every rank, so averaging them again
+    changes none) go to `out.<rank>`."""
+    import pickle
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    from mdt_policy_tpu_torch import agents, parallel
+    from mdt_policy_tpu_torch.training import train
+    with open(out + ".cfg", "rb") as f:
+        cfg, device_type = pickle.load(f)
+    real, records = agents.train_step, []
+
+    cuda = device_type == "cuda"
+
+    def step(state, batch, **kwargs):
+        t0 = time.perf_counter()
+        metrics = real(state, batch, **kwargs)
+        if cuda:
+            torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        trainable = [p for _, p in state.net.trainable_parameters()]
+        words = torch.cat([p.detach().reshape(-1).view(torch.int32) for p in trainable])
+        most, least = words.clone(), words.clone()
+        dist.all_reduce(most, op=dist.ReduceOp.MAX)
+        dist.all_reduce(least, op=dist.ReduceOp.MIN)
+        record = {"identical": bool(torch.equal(most, least)), "step_ms": step_ms,
+                  "metrics": parallel.reduce_metrics(metrics)}
+        if not records:
+            record["batch"] = {s: {k: v.cpu() for k, v in b.items()} for s, b in batch.items()}
+        if len(records) == 2 and cuda:
+            record["all_reduce_ms"] = event_ms(
+                lambda: parallel.all_reduce_gradients(trainable), 10, torch)
+            feats = torch.randn((TRAIN_BATCH, 1, state.net.cfg.latent_dim),
+                                device=trainable[0].device)
+            record["all_gather_fwd_ms"] = event_ms(
+                lambda: parallel.all_gather_with_grad(feats), 10, torch)
+        records.append(record)
+        return metrics
+    with mock.patch.object(agents, "train_step", step):
+        train(cfg, device=device_type)
+    torch.save(records, f"{out}.{rank}")
+    return 0
+
+
+def two_rank_train(torch, device_type: str, root, data=None, overrides=None):
+    """`train()` on 2 ranks (NCCL on CUDA, gloo on the CPU), synthetic
+    batches of TRAIN_BATCH a rank and stream, 3 steps, dropout off: the
+    ranks' trainables bit-identical after every step, and the first step's
+    losses (averaged over the ranks) within TWO_RANK_LOSS_REL_TOL of one
+    process's step at the global batch (the ranks' batches, rank order)
+    from the same initial weights and step generator."""
+    import pickle
+
+    from mdt_policy_tpu_torch import parallel
+    from mdt_policy_tpu_torch.agents import (init_random_, init_train_state, make_agent_net,
+                                             train_step)
+    from mdt_policy_tpu_torch.training import DataConfig, _make_agent, stream_generator
+    cfg = _run_config("mdtv", os.path.join(root, "runs"), "two_ranks", None, 1,
+                      steps_per_epoch=3, keep_checkpoints=0, log_recon_images=False)
+    cfg.data = data or DataConfig(root_data_dir=None)
+    cfg.agent_overrides = {"attn_pdrop": 0.0, "resid_pdrop": 0.0, "mlp_pdrop": 0.0,
+                           **(overrides or {})}
+    out = os.path.join(root, "two_ranks")
+    with open(out + ".cfg", "wb") as f:
+        pickle.dump((cfg, device_type), f)
+    port = parallel.free_port()
+    t0 = time.perf_counter()
+    _run_children([[sys.executable, os.path.abspath(__file__), "--ddp-rank", str(r), "2",
+                    str(port), out] for r in range(2)], DDP_CHILD_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    records = [torch.load(f"{out}.{r}", weights_only=False) for r in range(2)]
+    device = torch.device(device_type, 0) if device_type == "cuda" else torch.device("cpu")
+    net = init_random_(make_agent_net(_make_agent(cfg), device=device),
+                       stream_generator(cfg.trainer.seed, "init", 0, "cpu"))
+    batch = {s: {k: torch.cat([r[0]["batch"][s][k] for r in records]).to(device)
+                 for k in records[0][0]["batch"][s]} for s in records[0][0]["batch"]}
+    one = {k: float(v) for k, v in train_step(
+        init_train_state(net), batch,
+        generator=stream_generator(cfg.trainer.seed, "step", 0, device)).items()}
+    losses = [k for k in one if k.endswith("loss")]
+    rel = {k: abs(records[0][0]["metrics"][k] - one[k]) / max(abs(one[k]), 1e-30)
+           for k in losses}
+    row = {"ranks": 2, "steps": len(records[0]), "device": device_type,
+           "batch_per_stream_a_rank": cfg.trainer.batch_size,
+           "identical_after_each_step": [r["identical"] for r in records[0]],
+           "step_ms": [[r["step_ms"] for r in rec] for rec in records],
+           **{k: records[0][-1][k] for k in ("all_reduce_ms", "all_gather_fwd_ms")
+              if k in records[0][-1]},
+           "losses_step1": {k: records[0][0]["metrics"][k] for k in losses},
+           "losses_one_process": {k: one[k] for k in losses}, "max_rel_err": max(rel.values()),
+           "bound": TWO_RANK_LOSS_REL_TOL, "seconds": seconds}
+    if not (len(records[0]) == 3 and all(r["identical"] for rec in records for r in rec)
+            and row["max_rel_err"] <= TWO_RANK_LOSS_REL_TOL):
+        raise AssertionError(f"2-rank train() went wrong: {row}")
+    return row
+
+
+def ddp_only() -> int:
+    """`--ddp-only`: the device and build phases, then the ddp phase alone
+    (on a machine with two or more cards, the 2-rank `train()` too)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    smi = phase_device(torch)
+    phase_build()
+    with tempfile.TemporaryDirectory() as root:
+        emit({"phase": "ddp", "launches": phase_ddp(torch, device, smi, root)})
+    return 0
+
+
+def phase_ddp(torch, device, smi, root):
+    """The world-size-1 NCCL step against the plain one, in a child process
+    (`ddp_child`), its lines passed on; where the machine has two cards,
+    `two_rank_train` on NCCL too. Returns the group steps' launches."""
+    out = _run_children([[sys.executable, os.path.abspath(__file__), "--ddp-child"]],
+                        DDP_CHILD_TIMEOUT_S)[0]
+    rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    for row in rows:
+        emit({**row, "card": smi})
+    ranks_2 = two_rank_train(torch, "cuda", root) if torch.cuda.device_count() >= 2 \
+        else "not run: 1 device"
+    emit({"phase": "ddp", "ranks_2": ranks_2, "card": smi})
+    return next(r["launches"] for r in rows if "launches" in r)
+
+
 def kernel_entry(name, source, replaces, launches, rows, main):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -2532,7 +3067,13 @@ def main() -> int:
         shutil.rmtree(mdt_run)
         paths["train_cli"] = {k: v + mdt_cli[k] for k, v in paths["train_cli"].items()}
         paths["extract_cli"] = phase_extract_cli(torch, device, launches, smi, root, run)
+        shutil.rmtree(run)  # its checkpoint: disk space
+        paths["train_rollout"], run = phase_train_rollout(torch, device, launches, smi, root)
+        paths["video"] = phase_video(torch, device, launches, smi, run)
+    torch.cuda.empty_cache()
     phase_tf32(torch, device, smi)
+    with tempfile.TemporaryDirectory() as root:
+        paths["ddp"] = phase_ddp(torch, device, smi, root)
     paths["attn_variants"] = variant_launches
     emit(summary(rows, paths))
     emit({"ok": True, "device": {"platform": "gpu",
@@ -2546,19 +3087,22 @@ def summary(rows, paths):
     kernels and the microbench's V1 and V3, f32 for B2, whose path is the
     f32 denoiser), with its launches on each path; fails if a kernel was not
     launched on one of the paths it belongs to."""
-    replans = ("replan", "mdt_replan", "rollout", "evaluate_cli", "train_cli")
+    replans = ("replan", "mdt_replan", "rollout", "evaluate_cli", "train_cli", "train_rollout",
+               "video")
     entries = []
     for name, source, replaces, kind, shape, dtype, own in (
             ("fused_qkv_attention", "fused_qkv_attention.cu",
              "mdt_policy_tpu/ops/fused_qkv_attention.py:124", "b1", "voltron_train",
-             "bfloat16", replans + ("train", "mdt_train", "mdt_validation")),
+             "bfloat16", replans + ("train", "mdt_train", "mdt_validation", "ddp")),
             ("fused_layer_norm", "fused_norm.cu", "mdt_policy_tpu/ops/fused_norm.py:134",
              "b3", "clip_vision_train", "bfloat16",
-             replans + ("train", "mdt_train", "mdt_validation", "extract", "extract_cli")),
+             replans + ("train", "mdt_train", "mdt_validation", "extract", "extract_cli",
+                        "ddp")),
             ("fused_rms_norm", "fused_norm.cu", "mdt_policy_tpu/ops/fused_norm.py:159",
              "b3", "voltron_train", "bfloat16", ("replan", "rollout", "evaluate_cli", "train",
                                                  "mdt_train", "mdt_validation", "cache_train",
-                                                 "train_cli", "extract_cli")),
+                                                 "train_cli", "extract_cli", "train_rollout",
+                                                 "video", "ddp")),
             ("small_seq_mha", "small_seq_mha.cu",
              "mdt_policy_tpu/ops/pallas_attention.py:77", "b2", "mdtv_dec_b32", "float32",
              replans + ("mdt_validation", "extract_cli")),
@@ -2741,7 +3285,19 @@ if __name__ == "__main__":
     mode.add_argument("--replan-tree", metavar="ROOT", help=argparse.SUPPRESS)
     mode.add_argument("--halfblock-tree", metavar="ROOT", help=argparse.SUPPRESS)
     mode.add_argument("--variants-tree", metavar="ROOT", help=argparse.SUPPRESS)
+    mode.add_argument("--ddp-only", action="store_true",
+                      help="the ddp phase alone (2 NCCL ranks of train() with two cards)")
+    mode.add_argument("--ddp-child", action="store_true", help=argparse.SUPPRESS)
+    mode.add_argument("--ddp-rank", nargs=4, metavar=("RANK", "WORLD", "PORT", "OUT"),
+                      help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.ddp_only:
+        sys.exit(ddp_only())
+    if args.ddp_child:
+        sys.exit(ddp_child())
+    if args.ddp_rank:
+        rank, world, port, out = args.ddp_rank
+        sys.exit(ddp_rank(int(rank), int(world), int(port), out))
     if args.replan_ab:
         sys.exit(trees_ab("replan", args.replan_ab, "replan_ms_p50"))
     if args.halfblock_ab:

@@ -41,6 +41,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import parallel
 from ..diffusion import (append_dims, get_noise_schedule, get_scalings,
                          make_sample_density, precond_denoise, sample_loop)
 from ..models.blocks import ClipStyleProjection, RMSNorm
@@ -56,8 +57,8 @@ from .config import MDTVConfig
 
 __all__ = ["FROZEN_PREFIXES", "MDTVAgentNet", "MDTVPolicy", "TrainState",
            "denoise_actions", "init_random_", "init_train_state", "make_draws",
-           "make_optimizer", "reconstruction_forward", "resize_nhwc", "train_step",
-           "validation_step"]
+           "make_optimizer", "rank_draws", "reconstruction_forward", "resize_nhwc",
+           "train_step", "validation_step"]
 
 # top-level networks that stay frozen: no gradient, no optimizer state, no
 # EMA copy (JAX mdtv_agent.py:57)
@@ -318,7 +319,14 @@ class MDTVAgentNet(nn.Module):
 
     def clip_auxiliary_loss(self, image_features: torch.Tensor,
                             lang_features: torch.Tensor) -> torch.Tensor:
-        """Symmetric InfoNCE over the batch (JAX :350-361)."""
+        """Symmetric InfoNCE over the batch (JAX :350-361). With a process
+        group up and `use_distributed_clip`, over the global batch: both
+        feature sets gathered from every rank in rank order, with their
+        gradients (`parallel.all_gather_with_grad`), what JAX's sharded jit
+        computes."""
+        if self.cfg.use_distributed_clip and parallel.is_initialized():
+            image_features = parallel.all_gather_with_grad(image_features)
+            lang_features = parallel.all_gather_with_grad(lang_features)
         img = image_features / torch.linalg.vector_norm(image_features, dim=-1,
                                                         keepdim=True)
         lang = lang_features / torch.linalg.vector_norm(lang_features, dim=-1,
@@ -343,6 +351,27 @@ def make_draws(cfg: MDTVConfig, batch_size: int,
         "mask": torch.rand((batch_size, n_patches), generator=generator, device=dev),
         "dropout": generator,
     }
+
+
+def rank_draws(cfg: MDTVConfig, batch_sizes: Mapping[str, int],
+               generator: torch.Generator) -> Dict[str, Dict]:
+    """{scope: draws} of this rank's rows of a step: each scope's
+    `make_draws` for the global batch (world size x its rows), in sorted
+    scope order, from the same `generator` on every rank, then this rank's
+    slice, so W ranks at b rows draw what one process draws at W * b. Over
+    more than one rank the dropout masks come from a generator of the rank's
+    own, seeded from (`generator`'s seed, rank): the masks are drawn per
+    rank."""
+    world, rank = parallel.world_size(), parallel.rank()
+    draws = {s: make_draws(cfg, world * batch_sizes[s], generator) for s in sorted(batch_sizes)}
+    if world == 1:
+        return draws
+    word = np.random.SeedSequence([generator.initial_seed(), rank]).generate_state(1, np.uint64)[0]
+    dropout = torch.Generator(generator.device).manual_seed(int(word) >> 1)
+    for s, d in draws.items():
+        rows = slice(rank * batch_sizes[s], (rank + 1) * batch_sizes[s])
+        draws[s] = {**{k: v[rows] for k, v in d.items() if k != "dropout"}, "dropout": dropout}
+    return draws
 
 
 @torch.no_grad()
@@ -480,17 +509,29 @@ def train_step(state: TrainState, batch: Mapping[str, Batch], *,
     one backward runs over the trainables (the frozen towers ran under
     no_grad). AdamW steps at the schedule's lr of the pre-increment step; the
     EMA updates with the decay of the post-increment step. The gradients stay
-    in `.grad` until the next step. `draws` ({scope: make_draws(...)}) or
-    `generator` gives the step's random numbers. Returns the metrics of the
-    JAX step under the same names."""
+    in `.grad` until the next step. `draws` ({scope: make_draws(...)} of
+    this batch's rows) or `generator` gives the step's random numbers.
+    Returns the metrics of the JAX step under the same names.
+
+    With a process group up (`parallel`), the batch is this rank's shard of
+    the global batch: the generator's draws are this rank's rows of the
+    global batch's (`rank_draws`), the contrastive loss runs over the global
+    batch, and the gradients are averaged over the ranks after the zero fill
+    and before the norm and AdamW, so every rank takes the same step. The
+    shards must have equal rows (the averaged means are then the global
+    batch's); unequal ones raise. The metrics stay this rank's (the
+    contrastive loss is global): `parallel.reduce_metrics` averages them."""
     net, opt = state.net, state.optimizer
     batch = _on_device(batch, net.device)
     scopes = sorted(batch)
+    rows = {s: batch[s]["actions"].shape[0] for s in scopes}
+    if parallel.is_initialized():
+        for n in sorted(set(rows.values())):
+            parallel.check_equal_rows(n)
     if draws is None:
         if generator is None:
             raise ValueError("train_step needs a generator or the draws")
-        draws = {s: make_draws(net.cfg, batch[s]["actions"].shape[0], generator)
-                 for s in scopes}
+        draws = rank_draws(net.cfg, rows, generator)
     opt.zero_grad(set_to_none=True)
     metrics: Dict = {}
     total = 0.0
@@ -506,6 +547,7 @@ def train_step(state: TrainState, batch: Mapping[str, Batch], *,
     for _, p in trainable:
         if p.grad is None:  # unused this step: optax still decays it
             p.grad = torch.zeros_like(p)
+    parallel.all_reduce_gradients(p for _, p in trainable)
     metrics["train/grad_norm"] = _global_norm(p.grad for _, p in trainable)
     lr = lr_schedule_from_cfg(net.cfg)(state.step)
     for group in opt.param_groups:
@@ -605,10 +647,10 @@ class MDTVPolicy:
     noise is drawn from `generator` outside the graph and passed in, so a
     graph policy and an eager one give the same chunk from the same seed.
     A graph reads the net's parameters where they were at capture: load
-    new weights into them in place (`load_state_dict`), or make a new
-    policy. A capture that fails raises. The kernels' launch counters count
-    a captured kernel at each replay, where it runs, and not at the capture,
-    which runs none."""
+    new weights into them in place (`load_state_dict`), or `release` the
+    graphs, or make a new policy. A capture that fails raises. The kernels'
+    launch counters count a captured kernel at each replay, where it runs,
+    and not at the capture, which runs none."""
 
     def __init__(self, net: nn.Module,
                  generator: Optional[torch.Generator] = None,
@@ -663,7 +705,9 @@ class MDTVPolicy:
     def _capture(self, predict, inputs):
         """(graph, static inputs, static output, kernel launches a replay)
         of `predict`, after WARMUP_CALLS eager calls on a side stream
-        (kernel libraries loaded, library handles and workspaces made)."""
+        (kernel libraries loaded, library handles and workspaces made). The
+        capture is thread-local: another thread's CUDA work (the training
+        loop's prefetcher) goes on during it, on its own streams."""
         static = [t.clone() for t in inputs]
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
@@ -672,9 +716,16 @@ class MDTVPolicy:
                 predict(*static)
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with recording_launches() as launched, torch.cuda.graph(graph):
+        with recording_launches() as launched, \
+                torch.cuda.graph(graph, capture_error_mode="thread_local"):
             out = predict(*static)
         return graph, static, out, launched
+
+    def release(self) -> None:
+        """Drop the captured graphs and their memory; the next replan
+        captures again. Call it before the net's parameters are swapped
+        (a graph reads them where they were at capture)."""
+        self._graphs.clear()
 
     def _run(self, predict, *inputs) -> torch.Tensor:
         """`predict(*inputs)`, eagerly or as the replay of its graph."""

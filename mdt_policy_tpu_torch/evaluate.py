@@ -18,10 +18,10 @@
   dataset's `embeddings.npy`;
 * runs the chains through `MDTVPolicy` (one CUDA graph a replan on the card)
   against calvin_env, or `--fake-env` for a sim-free smoke run, and writes
-  `results.json` under `<train_folder>/evaluation`.
-
-Video recording (`--num-videos`) is not ported yet (ROADMAP queue A item 5,
-"Training-time evaluation").
+  `results.json` under `<train_folder>/evaluation`;
+* `--num-videos N` records the first N chains (GIF, and mp4 where an
+  encoder is importable) under `<train_folder>/evaluation/videos`; that
+  needs PIL, and raises ImportError without it.
 """
 
 from __future__ import annotations
@@ -123,7 +123,9 @@ def main(argv=None):
     ap.add_argument("--multistep", type=int, default=None)
     ap.add_argument("--no-ema", action="store_true")
     ap.add_argument("--num-videos", type=int, default=0,
-                    help="record the first N chains (not ported yet: raises)")
+                    help="record the first N chains as GIF/mp4 under "
+                         "<train_folder>/evaluation/videos (ref "
+                         "conf/mdt_evaluate.yaml num_videos)")
     ap.add_argument("--use-embeddings", action="store_true",
                     help="goal = precomputed embeddings.npy lookup instead of "
                          "the CLIP text tower (the reference's "
@@ -144,10 +146,6 @@ def main(argv=None):
     logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO)
     from .utils.misc import full_f32
     full_f32()
-    if args.num_videos > 0:
-        raise NotImplementedError(
-            "--num-videos: video recording is not ported yet (ROADMAP queue A "
-            "item 5, 'Training-time evaluation')")
 
     if args.sweep_sampler or args.sweep_steps or args.sweep_sigma_min:
         return _sweep(args)
@@ -174,7 +172,9 @@ def main(argv=None):
                            lang_embeddings=lang_embeddings)
 
     results = evaluate_policy(policy, env, oracle, goal_fn,
-                              num_sequences=args.num_sequences, ep_len=args.ep_len)
+                              num_sequences=args.num_sequences, ep_len=args.ep_len,
+                              num_videos=args.num_videos,
+                              video_dir=Path(args.train_folder) / "evaluation" / "videos")
     data = print_and_save(results, args.num_sequences,
                           Path(args.train_folder) / "evaluation")
     print(json.dumps({"avg_seq_len": data["avg_seq_len"],

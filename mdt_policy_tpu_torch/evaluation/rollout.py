@@ -1,5 +1,5 @@
-"""Closed-loop CALVIN evaluation loop (port of
-`mdt_policy_tpu/evaluation/rollout.py`; video recording is not ported yet).
+"""Closed-loop CALVIN evaluation loop (a copy of
+`mdt_policy_tpu/evaluation/rollout.py`, video hooks included).
 
 Re-implements the reference's evaluation loop
 (`mdt/evaluation/mdt_evaluate.py:50-220`) against two small protocols instead
@@ -64,23 +64,33 @@ class LangEmbeddings:
                 "lang_text": lang_text}
 
 
-def rollout(env, model, task_oracle, subtask: str, goal: Dict,
-            ep_len: int = 360) -> bool:
-    """Single-subtask closed loop (ref mdt_evaluate.py:185-220)."""
+def rollout(env, model, task_oracle, subtask: str, lang_annotation: str,
+            goal: Dict, ep_len: int = 360, video=None) -> bool:
+    """Single-subtask closed loop (ref mdt_evaluate.py:185-220). With `video`
+    (a RolloutVideo) every static-camera frame is recorded and the subtask's
+    frames get the language caption (ref :205-219)."""
     obs = env.get_obs()
     model.reset()
     start_info = env.get_info()
+    success = False
     for _step in range(ep_len):
         action = model.step(obs, goal)
         obs, _, _, current_info = env.step(action)
-        if task_oracle.get_task_info_for_set(start_info, current_info, {subtask}):
-            return True
-    return False
+        if video is not None:
+            video.update(obs["rgb_obs"]["rgb_static"])
+        current_task_info = task_oracle.get_task_info_for_set(
+            start_info, current_info, {subtask})
+        if len(current_task_info) > 0:
+            success = True
+            break
+    if video is not None:
+        video.add_language_instruction(lang_annotation)
+    return success
 
 
 def evaluate_sequence(env, model, task_oracle, initial_state: Dict,
-                      eval_sequence: Sequence[str], goal_fn,
-                      ep_len: int = 360) -> int:
+                      eval_sequence: Sequence[str], goal_fn, ep_len: int = 360,
+                      video=None) -> int:
     """Run one 5-task chain; returns the count of consecutive successes
     (ref mdt_evaluate.py:157-182). `goal_fn(subtask) -> goal dict`."""
     robot_obs, scene_obs = get_env_state_for_initial_condition(initial_state)
@@ -88,7 +98,12 @@ def evaluate_sequence(env, model, task_oracle, initial_state: Dict,
     success_counter = 0
     for subtask in eval_sequence:
         goal = goal_fn(subtask)
-        success = rollout(env, model, task_oracle, subtask, goal, ep_len)
+        if video is not None:
+            video.new_subtask()
+        success = rollout(env, model, task_oracle, subtask,
+                          goal.get("lang_text", subtask), goal, ep_len, video)
+        if video is not None:
+            video.draw_outcome(success)
         # ref mdt_evaluate.py debug prints (:166-171,199-203)
         logger.debug("subtask %-28s | %-45s | %s", subtask,
                      goal.get("lang_text", ""), "success" if success else "fail")
@@ -100,17 +115,31 @@ def evaluate_sequence(env, model, task_oracle, initial_state: Dict,
 
 def evaluate_policy(model, env, task_oracle, goal_fn, *, num_sequences: int = 1000,
                     ep_len: int = 360, sequence_indices: Optional[Sequence[int]] = None,
-                    progress: bool = True) -> List[int]:
+                    progress: bool = True, num_videos: int = 0,
+                    video_dir=None) -> List[int]:
     """Full benchmark (ref mdt_evaluate.py:112-154). `sequence_indices` shards
     chains across hosts (the RolloutLongHorizon DDP sharding equivalent,
-    rollout_long_horizon.py:42-78)."""
+    rollout_long_horizon.py:42-78). The first `num_videos` chains are recorded
+    to `video_dir` with per-subtask outcome borders and captions
+    (ref :116-143)."""
     eval_sequences = get_sequences(num_sequences)
     if sequence_indices is not None:
         eval_sequences = [eval_sequences[i] for i in sequence_indices]
+    recorder = None
+    if num_videos > 0:
+        from .video import RolloutVideo
+        recorder = RolloutVideo(video_dir or "rollout_videos")
     results: List[int] = []
     for i, (initial_state, eval_sequence) in enumerate(eval_sequences):
-        results.append(evaluate_sequence(env, model, task_oracle, initial_state,
-                                         eval_sequence, goal_fn, ep_len))
+        video = recorder if (recorder is not None and i < num_videos) else None
+        if video is not None:
+            # ref get_video_tag (mdt_evaluate.py:29-30)
+            video.new_video(f"lh-sequence_{i}", caption=" | ".join(eval_sequence))
+        result = evaluate_sequence(env, model, task_oracle, initial_state,
+                                   eval_sequence, goal_fn, ep_len, video)
+        if video is not None:
+            video.write()
+        results.append(result)
         if progress and (i + 1) % 50 == 0:
             srs = count_success(results)
             avg = sum(srs)

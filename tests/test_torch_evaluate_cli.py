@@ -9,6 +9,7 @@ Also the calvin_env adapter on a stub `calvin_env`.
 
 import dataclasses
 import json
+import shutil
 import sys
 import types
 from unittest import mock
@@ -180,13 +181,17 @@ def test_main_fake_env_writes_the_oracles_results(runs, family, capsys):
     assert printed == {"avg_seq_len": 0.0, "chain_sr": port["0"]["chain_sr"]}
 
 
-def test_cli_refuses_what_the_port_lacks(runs):
-    """Video, a sampler other than ddim (also in a sweep) raise; the default
-    device is CUDA, which raises where there is none."""
+def test_cli_refuses_what_the_port_lacks(runs, tmp_path):
+    """A sampler other than ddim (also in a sweep) raises; the default
+    device is CUDA, which raises where there is none. `--num-videos`, no
+    longer refused, writes the first chain's GIF under
+    <train_folder>/evaluation/videos."""
     port_dir = str(runs["mdtv"][1])
     base = ["--train-folder", port_dir, "--fake-env", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        evaluate.main([*base, "--num-videos", "1"])
+    copy = shutil.copytree(port_dir, tmp_path / "run")  # its results.json is its own
+    evaluate.main(["--train-folder", str(copy), "--fake-env", "--device", "cpu",
+                   "--num-videos", "1", "--num-sequences", "1", "--ep-len", "3"])
+    assert (copy / "evaluation" / "videos" / "lh-sequence_0.gif").stat().st_size > 0
     with pytest.raises(NotImplementedError, match="sampler_type"):
         evaluate.main([*base, "--sampler", "heun"])
     with pytest.raises(NotImplementedError, match="sampler_type"):

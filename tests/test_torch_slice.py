@@ -228,7 +228,9 @@ def test_port_imports_without_jax():
             "'tools.attn_kernel_round3', 'training', 'evaluate', 'utils.checkpoint', "
             "'utils.from_jax', 'evaluation.env_adapter', 'data.windows', 'data.proprio', "
             "'data.dataset', 'data.memory_cache', 'data.extract', 'utils.logging_utils', "
-            "'utils.misc', 'utils.profiling'):\n"
+            "'utils.misc', 'utils.profiling', 'parallel', 'parallel.ddp', "
+            "'evaluation.video', 'evaluation.single_task_rollout', "
+            "'evaluation.training_callbacks'):\n"
             "    assert 'mdt_policy_tpu_torch.' + needed in names, needed\n"
             "for name in names + ['chip_smoke']:\n"
             "    __import__(name)\n"

@@ -4,8 +4,11 @@ an on-disk CALVIN split (that test is in tests/test_torch_extract_cli.py,
 beside the other on-disk runs); the run directory (metrics.csv, config.yaml that the JAX
 `load_config` reads, system_info.json with the TF32 flags, checkpoints, the
 recon grid, the profile); the preemption resume bit for bit; SIGTERM; the
-divergence guard; the warm start; what raises; and the evaluate CLI on a
-run directory that `train()` wrote.
+divergence guard; the warm start; what raises; the training-time rollouts
+(the chain rollout's `eval_lh/*` and `best.json`, the single-task rollouts,
+a run with them bit-equal to one without, the default factory paths
+resolved onto the port without JAX); and the evaluate CLI on a run
+directory that `train()` wrote.
 """
 
 import csv
@@ -15,8 +18,10 @@ import os
 import signal
 import subprocess
 import sys
+import textwrap
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -24,13 +29,18 @@ import torch
 import yaml
 
 from mdt_policy_tpu import training as jax_training
-from mdt_policy_tpu_torch import evaluate, training
+from mdt_policy_tpu_torch import agents, evaluate, training
 from mdt_policy_tpu_torch.agents import (init_random_, init_train_state, make_agent_net,
                                          train_step, validation_step)
-from mdt_policy_tpu_torch.training import (DataConfig, RunConfig, TrainerConfig,
+from mdt_policy_tpu_torch.evaluation import annotations, env_adapter, policy_adapter
+from mdt_policy_tpu_torch.evaluation.fake_env import FakeEnv, ScriptedOracle
+from mdt_policy_tpu_torch.evaluation.policy_adapter import make_rollout_policy
+from mdt_policy_tpu_torch.training import (DataConfig, RolloutConfig, RunConfig,
+                                           TaskRolloutConfig, TrainerConfig,
                                            TrainingDivergedError, ema_weights,
                                            stream_generator, train)
 from mdt_policy_tpu_torch.utils.checkpoint import latest_checkpoint
+from test_torch_data import write_split
 from test_torch_train_step import TINY
 
 REPO = Path(__file__).resolve().parents[1]
@@ -196,15 +206,151 @@ def test_divergence_guard_halts_without_a_checkpoint(tmp_path):
     assert latest_checkpoint(tmp_path / "diverge" / "checkpoints") is None
 
 
-@pytest.mark.parametrize("section,field", [("rollout", "enabled"), ("task_rollout", "enabled"),
-                                           ("distributed", "enabled"), ("trainer", "devices")])
-def test_unported_options_raise_before_any_work(tmp_path, section, field):
-    cfg = _cfg(tmp_path, "refused")
-    setattr(getattr(cfg, section), field, 2 if field == "devices" else True)
-    item = "item 7" if section in ("distributed", "trainer") else "item 5"
-    with pytest.raises(NotImplementedError, match=item):
-        train(cfg, device="cpu")
-    assert not (tmp_path / "refused").exists()
+# the task rollout's factories (`task_rollout.env_target` / `oracle_target`
+# name them by dotted path), as tests/fake_targets.py has them for the JAX
+# package
+class DiscoveryOracle:
+    """Demo discovery maps every demo to `open_drawer`; a rollout solves any
+    task after one env step."""
+
+    def get_task_info(self, start_info, end_info):
+        return {"open_drawer"}
+
+    def get_task_info_for_set(self, start_info, current_info, subtasks):
+        return set(subtasks) if current_info["t"] - start_info["t"] >= 1 else set()
+
+
+def make_env(dataset_path=None):
+    return FakeEnv(img_hw=32, gripper_hw=32)
+
+
+def make_oracle():
+    return DiscoveryOracle()
+
+
+# the chain rollout's scripted oracle: every task after 2 env steps but one
+CHAIN_RULE = {"rotate_blue_block_right": 10 ** 9}
+
+
+@pytest.fixture(scope="module")
+def rollout_runs(tmp_path_factory):
+    """`train()` over an on-disk split, 2 epochs of 2 steps, with both
+    rollouts at each epoch (`make_calvin_env` and `make_task_oracle` patched
+    to the fake env and a scripted oracle; the task rollout's factories
+    above), and the same run with both off. Records, at each rollout
+    policy's construction, whether the net held the EMA."""
+    tmp = tmp_path_factory.mktemp("rollouts")
+    data = tmp / "calvin"
+    write_split(data / "training")
+    write_split(data / "validation", seed=1)
+    split = DataConfig(root_data_dir=str(data), min_window_size=21, max_window_size=30,
+                       num_workers=1)
+    off = _cfg(tmp, "off", data=split, overrides=REAL)
+    on = dataclasses.replace(
+        off, run_name="on",
+        rollout=RolloutConfig(enabled=True, num_sequences=3, ep_len=4, rollout_freq=1,
+                              skip_epochs=0),
+        task_rollout=TaskRolloutConfig(
+            enabled=True, skip_epochs=0, rollout_freq=1, rollouts_per_task=1, ep_len=4,
+            discovery_batches=1, id_selection_strategy="select_first",
+            env_target="test_torch_training_cli.make_env",
+            oracle_target="test_torch_training_cli.make_oracle"))
+    on_ema = []
+
+    def recording(net, **kw):
+        state = states_seen[-1]
+        on_ema.append(all(p.data_ptr() == state.ema[n].data_ptr()
+                          for n, p in net.trainable_parameters()))
+        return make_rollout_policy(net, **kw)
+    states_seen = []
+    real_init = agents.init_train_state
+
+    def init_train_state(net):
+        states_seen.append(real_init(net))
+        return states_seen[-1]
+    with mock.patch.object(env_adapter, "make_calvin_env",
+                           lambda path: FakeEnv(img_hw=32, gripper_hw=32, seed=4)), \
+            mock.patch.object(annotations, "make_task_oracle",
+                              lambda: ScriptedOracle(CHAIN_RULE, default=2)), \
+            mock.patch.object(policy_adapter, "make_rollout_policy", recording), \
+            mock.patch.object(agents, "init_train_state", init_train_state):
+        states = {"on": train(on, device="cpu")}
+    states["off"] = train(off, device="cpu")
+    return tmp, states, on_ema
+
+
+def test_train_rollout_logs_eval_lh_and_picks_best_json(rollout_runs):
+    """The chain rollout at each epoch on the EMA weights: `eval_lh/*` rows in
+    metrics.csv, and `best.json` names the epoch's save with its
+    `eval_lh/avg_seq_len` (ties go to the later step)."""
+    tmp, _, on_ema = rollout_runs
+    rows = _metrics(tmp / "on")
+    lh = [r for r in rows if "eval_lh/avg_seq_len" in r]
+    assert [r["step"] for r in lh] == [2, 4]
+    avg = lh[0]["eval_lh/avg_seq_len"]
+    assert 0 < avg <= 5 and lh[1]["eval_lh/avg_seq_len"] == avg
+    assert avg == pytest.approx(sum(lh[0][f"eval_lh/sr_chain_{i}"] for i in range(1, 6)))
+    best = json.loads((tmp / "on" / "checkpoints" / "best.json").read_text())
+    assert best == {"step": 4, "metric": avg, "metric_name": "eval_lh/avg_seq_len"}
+    assert on_ema == [True] * 4  # two rollouts an epoch, each on the EMA
+    assert not (tmp / "off" / "checkpoints" / "best.json").exists()
+
+
+def test_task_rollout_through_train(rollout_runs):
+    """The single-task rollouts through `train()` (the JAX
+    tests/test_train_real_data.py:111-160): demo discovery from validation
+    batches, the task dictionary beside the run, per-task success rates for
+    both goal modalities at each epoch."""
+    tmp, _, _ = rollout_runs
+    task_dict = tmp / "on" / "task_dict.npy"
+    assert task_dict.exists()
+    from mdt_policy_tpu.evaluation.single_task_rollout import load_task_dict
+    assert sorted(load_task_dict(task_dict)) == ["open_drawer"]
+    rows = [r for r in _metrics(tmp / "on") if "tasks/average_sr" in r]
+    assert [r["step"] for r in rows] == [2, 4]
+    for r in rows:
+        assert r["tasks/open_drawer_vis_sr"] == r["tasks/open_drawer_lang_sr"] == 1.0
+        assert r["tasks/average_sr"] == 1.0
+    assert not (tmp / "off" / "task_dict.npy").exists()
+
+
+def test_a_run_with_rollouts_ends_bit_equal_to_one_without(rollout_runs):
+    """The rollouts draw from their own streams and run on the EMA swapped
+    in and out: every parameter, EMA entry, Adam moment and step of the run
+    with both rollouts equals the run without them, and so do its losses."""
+    tmp, states, _ = rollout_runs
+    _assert_bit_equal(states["on"], states["off"])
+    pick = lambda rows: [(r["step"], r["train/total_loss"]) for r in rows
+                         if "train/total_loss" in r]
+    assert pick(_metrics(tmp / "on")) == pick(_metrics(tmp / "off"))
+
+
+def test_default_targets_resolve_to_the_port_without_jax():
+    """`TaskRolloutConfig`'s default `env_target` and `oracle_target` name
+    the JAX package (the snapshot both packages read); the port's resolver
+    maps them onto its own modules, in a process where importing
+    `mdt_policy_tpu` fails, and imports any other path as given."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["mdt_policy_tpu"] = None
+        from mdt_policy_tpu_torch import training
+        from mdt_policy_tpu_torch.evaluation import annotations, env_adapter
+        cfg = training.TaskRolloutConfig()
+        assert cfg.env_target.startswith("mdt_policy_tpu.evaluation.")
+        assert cfg.oracle_target.startswith("mdt_policy_tpu.evaluation.")
+        assert training._resolve_target(cfg.env_target) is env_adapter.make_calvin_env
+        assert training._resolve_target(cfg.oracle_target) is annotations.make_task_oracle
+        import os.path
+        assert training._resolve_target("os.path.join") is os.path.join
+        loaded = [m for m in sys.modules if sys.modules[m] is not None
+                  and (m.split(".")[0] in ("jax", "flax", "optax", "mdt_policy_tpu"))]
+        assert not loaded, loaded
+        print("resolved")
+        """)
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "resolved", proc.stderr
 
 
 def test_cache_mode_needs_mdtv_and_the_default_device_is_cuda(tmp_path):
