@@ -33,7 +33,14 @@ train step in an NCCL process group. Prints one JSON line per phase:
               D=128, D off the vector width, several rows a block;
               contiguous, strided and misaligned inputs), f32 also against
               float64; B2 and B3 rows carry the wrapper's host microseconds
-              a call (`host_us`, 1000 calls, no synchronise). Then B4 and
+              a call (`host_us`, 1000 calls, no synchronise). B3's rows
+              carry its launch plan (lanes a row, vectors a lane, blocks,
+              warps a block, the path of few or many rows) and three device
+              readings each, warm and with a cold L2 (a rotation of input
+              copies whose calls between two uses of one move twice the
+              L2's 50 MB), of the kernel, PR 7's body
+              (`csrc/baseline/fused_norm_pr7.cu`), the library call and a
+              copy of x, and the cold reading's share of the bound. Then B4 and
               B5 (the attention and MLP half-blocks) at the extraction's six shapes against
               their plain versions in bf16 and in float64, with the kernel,
               device, plain and unfused route (B3 + F.linear + B1 or the
@@ -51,7 +58,8 @@ train step in an NCCL process group. Prints one JSON line per phase:
      graph    30 steps on the graph policy: the same counts per replan (a
               captured kernel counts at each replay, not at the capture);
               the two replays with the goal cached launch those kernels by
-              name in the profiler too; the graph and the eager policy from
+              name in the profiler too (their device µs by name beside the
+              counts); the graph and the eager policy from
               one seed give the same chunks bit for bit for a text goal and
               a goal image over two replans with other frames.
   5. e2e      the same replan through the kernels and through the plain
@@ -59,7 +67,8 @@ train step in an NCCL process group. Prints one JSON line per phase:
   6. timing   replan p50/p90 at B=1 and B=32 of the graph and the eager
               policy in turns (graph, eager, eager, graph), the capture's ms
               and reserved memory, goal-encode time; then 5 replans of each
-              under the profiler (device events and busy share).
+              under the profiler (device events, busy share, and the device
+              µs a replan of B1, B3 LayerNorm, B3 RMSNorm and B2).
   7. b2_ab    MDT-V replan p50/p90 at B=1 and B=32 with B2 and with B2
               swapped alone for `sdpa`, in turns (B2, sdpa, sdpa, B2).
   8. replan, e2e, timing  the same three for MDT: B1 12 then 0, B3 25 then
@@ -152,8 +161,9 @@ train step in an NCCL process group. Prints one JSON line per phase:
               frames and draws: the B=1 replan chunk, one train step's 9
               losses, the two ResNets' f32 outputs against float64, the
               step's device ms (and with cuDNN free to choose algorithms).
-              The B3 and B2 rows of 3 also carry the library call's device
-              ms (`library_device_ms`).
+              The B3 and B2 rows of 3, V1/V3's rows of 18 and the norm
+              pass's and GEMMs' rows of 3 also carry the library call's
+              device ms (`library_device_ms`).
  22. train_rollout  (runs before tf32, on train_cli's split) `train()` of
               MDT-V at B=128 per stream, 2 epochs of 3 steps, with both
               training-time rollouts after epoch 2: the chain rollout (4
@@ -274,14 +284,17 @@ KERNEL_SHAPES = (
 KERNEL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # B3 (function, name, rows, D): at one replan Voltron's RMSNorms and its
 # encoder_norm (2 images), the CLIP text tower (one goal) and the CLIP vision
-# tower (one goal image); at one train scope Voltron (256 images), CLIP
-# vision (128 images x 197), CLIP text (128 goals x 77), the foresight
-# decoder (128 x (4 context + 98 patch tokens))
+# tower (one goal image); Voltron's at the batched evaluation's B=32 replan
+# (64 images); at one train scope Voltron (256 images), CLIP vision (128
+# images x 197), CLIP text (128 goals x 77), the foresight decoder (128 x (4
+# context + 98 patch tokens))
 NORM_SHAPES = (
     ("rms", "voltron", 392, 384),
     ("ln", "voltron_encoder_norm", 392, 384),
     ("ln", "clip_text", 77, 512),
     ("ln", "clip_vision", 197, 768),
+    ("rms", "voltron_b32", 12544, 384),
+    ("ln", "voltron_encoder_norm_b32", 12544, 384),
     ("rms", "voltron_train", 50176, 384),
     ("ln", "clip_vision_train", 25216, 768),
     ("ln", "clip_text_train", 9856, 512),
@@ -291,6 +304,12 @@ NORM_SHAPES = (
 # one rounding of the output (3.9e-3) and its neighbour when the f32 results
 # differ in the last bit
 NORM_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
+# B3's device times: readings of the kernel, PR 7's body and the library
+# call in turns (and of a copy of x), each with warm inputs and with a cold
+# L2 (a rotation of input copies whose calls between two uses of a copy
+# move 2 x the H100's 50 MB of L2), calls a reading
+NORM_READINGS, NORM_CALLS = 3, 20
+L2_BYTES = 50e6
 # Bound on the replan chunk, kernel path vs plain path, relative to
 # max(1, max|chunk|): the towers are bf16, so a one-ulp difference in a token
 # (3.9e-3 relative) can propagate through the perceiver (MDT-V) or the goal
@@ -599,51 +618,171 @@ def phase_kernel_b1(torch, device):
     return rows
 
 
+def pr7_norm():
+    """The C functions (LayerNorm, RMSNorm) of B3's body as PR 7 left it
+    (`csrc/baseline/fused_norm_pr7.cu`: one warp a row, the weights loaded
+    after the reduction, a division an element), for the B3 phase's A/B."""
+    import ctypes
+    from mdt_policy_tpu_torch.ops import _build
+    lib = _build.load_library("fused_norm_pr7", _build.CSRC / "baseline")
+    ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.mdt_fused_layer_norm.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_longlong, i, f, i, ptr]
+    lib.mdt_fused_rms_norm.argtypes = [ptr, ptr, ptr, ctypes.c_longlong, i, f, i, ptr]
+    return lib.mdt_fused_layer_norm, lib.mdt_fused_rms_norm
+
+
+def raw_norm(torch, fns, x, w, b, eps, out=None):
+    """One launch of a B3 body's C function (`fns`: LayerNorm, RMSNorm; b
+    None for RMSNorm) on (rows, D) x, without the wrapper's checks or launch
+    count: `out`, or a new output."""
+    from mdt_policy_tpu_torch.ops import _build
+    out = torch.empty_like(x) if out is None else out
+    tail = (x.shape[0], x.shape[1], eps, int(x.dtype is torch.bfloat16),
+            _build.current_stream(x))
+    rc = fns[1](x.data_ptr(), w.data_ptr(), out.data_ptr(), *tail) if b is None \
+        else fns[0](x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), *tail)
+    if rc != 0:
+        raise RuntimeError(f"a B3 body's launch failed with error {rc}")
+    return out
+
+
+def norm_device_readings(torch, calls, copies: int):
+    """Device ms a call of each of `calls` ({label: (call(i) on input copy i,
+    device kernel name or None for the library call)}), NORM_READINGS
+    readings of each, warm (copy 0 every call) and cold (the copies in
+    turn, one rotation shared by every label, so that a call's copy was last
+    read `copies` - 1 calls before); the labels run in turns, NORM_CALLS
+    calls a label, in one profiler window a reading. A label with a kernel
+    name reads the mean duration of its kernels; the library call, every
+    other device event over its calls. Each output is kept until its copy
+    comes round again, so the writes rotate too."""
+    from torch.profiler import ProfilerActivity, profile
+    outs, turn = [None] * copies, [0]
+
+    def run(call, cold):
+        if cold:
+            turn[0] = (turn[0] + 1) % copies
+        i = turn[0] if cold else 0
+        outs[i] = call(i)
+
+    labels = list(calls)
+    for label in labels:  # warm-up
+        run(calls[label][0], False)
+    readings = {(label, cold): [] for label in labels for cold in (False, True)}
+    for k in range(NORM_READINGS):
+        for cold in (False, True):
+            order = labels if k % 2 == 0 else labels[::-1]
+            names = [calls[label][1] for label in labels if calls[label][1]]
+            for _ in range(PROFILE_TRIES):  # a window that lost a kernel's events
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for label in order:
+                        for _ in range(NORM_CALLS):
+                            run(calls[label][0], cold)
+                    torch.cuda.synchronize()
+                events = _device_events(torch, prof)
+                if all(any(n in e.name for e in events) for n in names):
+                    break
+            for label in labels:
+                name = calls[label][1]
+                if name:
+                    mine = [e.time_range.elapsed_us() for e in events if name in e.name]
+                    ms = sum(mine) / len(mine) / 1e3 if mine else None
+                else:
+                    rest = [e.time_range.elapsed_us() for e in events
+                            if not any(n in e.name for n in names)]
+                    ms = sum(rest) / NORM_CALLS / 1e3
+                readings[(label, cold)].append(ms)
+    return readings
+
+
 def phase_kernel_b3(torch, device):
+    """B3 against its plain version at NORM_SHAPES in bf16 and f32, and
+    PR 7's body beside it; the launch plan of each shape; event ms of the
+    kernel, the plain version and the library call (F.layer_norm,
+    F.rms_norm), the wrapper's host µs, and the device ms of the kernel, PR
+    7's body, the library call and a copy of x (`x.clone()`: the same bytes,
+    no arithmetic) from `norm_device_readings`, warm and cold, with the cold
+    reading's share of the bound; and the host's µs a launch of either body
+    through its C function alone (`raw_host_us`, `pr7_raw_host_us`)."""
     import torch.nn.functional as F
+    from mdt_policy_tpu_torch.ops import fused_norm
     from mdt_policy_tpu_torch.ops.fused_norm import (
         fused_layer_norm, fused_layer_norm_reference, fused_rms_norm,
-        fused_rms_norm_reference)
+        fused_rms_norm_reference, launch_plan)
+    bodies = {"": fused_norm._kernels()[:2], "pr7_": pr7_norm()}
     gen = torch.Generator(device).manual_seed(1)
     rows = []
     for kind, name, n, D in NORM_SHAPES:
         for dtype_name in ("bfloat16", "float32"):
             dtype = getattr(torch, dtype_name)
-            x = (torch.randn((n, D), generator=gen, device=device) * 3).to(dtype)
-            w = torch.randn((D,), generator=gen, device=device).to(dtype)
-            b = torch.randn((D,), generator=gen, device=device).to(dtype)
+            n_weights = 2 if kind == "ln" else 1
+            call_bytes = (2 * n + n_weights) * D * dtype.itemsize
+            copies = int(np.ceil(2 * L2_BYTES / call_bytes)) + 1
+            xs = (torch.randn((copies, n, D), generator=gen, device=device) * 3).to(dtype)
+            ws = torch.randn((copies, D), generator=gen, device=device).to(dtype)
+            bs = torch.randn((copies, D), generator=gen, device=device).to(dtype)
+            x, w, b = xs[0], ws[0], bs[0]
+            eps = 1e-5 if kind == "ln" else 1e-8
             if kind == "ln":
                 fn = "fused_layer_norm"
-                kernel = lambda: fused_layer_norm(x, w, b, 1e-5)
-                plain = lambda: fused_layer_norm_reference(x, w, b, 1e-5)
-                library = lambda: F.layer_norm(x, (D,), w, b, 1e-5)
+                kernel = lambda i: fused_layer_norm(xs[i], ws[i], bs[i], eps)
+                plain = lambda: fused_layer_norm_reference(x, w, b, eps)
+                library = lambda i: F.layer_norm(xs[i], (D,), ws[i], bs[i], eps)
             else:
                 fn = "fused_rms_norm"
-                kernel = lambda: fused_rms_norm(x, w, 1e-8)
-                plain = lambda: fused_rms_norm_reference(x, w, 1e-8)
+                kernel = lambda i: fused_rms_norm(xs[i], ws[i], eps)
+                plain = lambda: fused_rms_norm_reference(x, w, eps)
                 # eps sits inside the square root there: the same work, not
                 # quite the same function
-                library = lambda: F.rms_norm(x, (D,), w, 1e-8)
-            out, ref = kernel(), plain()
+                library = lambda i: F.rms_norm(xs[i], (D,), ws[i], eps)
+            b_or_none = (lambda i: bs[i]) if kind == "ln" else (lambda i: None)
+            old = lambda i: raw_norm(torch, bodies["pr7_"], xs[i], ws[i], b_or_none(i), eps)
+            # the host's cost of a launch of either body alone, in turns
+            raw = {label: (lambda fns=fns, out=torch.empty_like(x):
+                           raw_norm(torch, fns, x, w, b_or_none(0), eps, out))
+                   for label, fns in bodies.items()}
+            raw_us = {label: [] for label in raw}
+            for label in ("", "pr7_", "pr7_", ""):
+                raw_us[label].append(host_us(raw[label], torch))
+            out, ref = kernel(0), plain()
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             bound = NORM_TOL[dtype_name] * max(1.0, ref.float().abs().max().item())
             iters = 200
-            n_weights = 2 if kind == "ln" else 1
-            bms, by = bound_ms((2 * n + n_weights) * D * x.element_size(),
-                               8 * n * D, dtype_name)
+            bms, by = bound_ms(call_bytes, 8 * n * D, dtype_name)
+            readings = norm_device_readings(
+                torch, {"": (kernel, "fused_norm_kernel"), "pr7_": (old, "fused_norm_pr7_kernel"),
+                        "library_": (library, None)}, copies)
+            # a copy of x moves the same bytes and computes nothing
+            readings.update(norm_device_readings(
+                torch, {"copy_": (lambda i: xs[i].clone(), None)}, copies))
+            timed = {}
+            for (label, cold), values in readings.items():
+                key = f"{label}device_ms{'_cold' if cold else ''}"
+                timed[key] = float(np.median(values)) if None not in values else None
+                timed[f"{key}_readings"] = values
             row = {"phase": "kernel", "kernel": fn, "shape": name, "x": [n, D],
-                   "dtype": dtype_name, "max_abs_err": err, "bound": bound,
-                   "ms": event_ms(kernel, iters, torch), "host_us": host_us(kernel, torch),
-                   "device_ms": device_ms(kernel, "fused_norm_kernel", 20, torch),
+                   "dtype": dtype_name, "plan": launch_plan(n, D, dtype),
+                   "max_abs_err": err, "bound": bound,
+                   "pr7_max_abs_err": (old(0).float() - ref.float()).abs().max().item(),
+                   "ms": event_ms(lambda: kernel(0), iters, torch),
+                   "host_us": host_us(lambda: kernel(0), torch),
+                   **{f"{label}raw_host_us": float(np.mean(us)) for label, us in raw_us.items()},
+                   **timed,
                    "plain_ms": event_ms(plain, iters, torch),
-                   "library_ms": event_ms(library, iters, torch),
-                   "library_device_ms": call_device_ms(library, 20, torch),
-                   "bound_ms": bms, "bound_by": by}
+                   "library_ms": event_ms(lambda: library(0), iters, torch),
+                   "cold_copies": copies, "bound_ms": bms, "bound_by": by,
+                   "bound_share_cold": (bms / timed["device_ms_cold"]
+                                        if timed["device_ms_cold"] else None),
+                   "pr7_bound_share_cold": (bms / timed["pr7_device_ms_cold"]
+                                            if timed["pr7_device_ms_cold"] else None),
+                   "copy_bound_share_cold": bms / timed["copy_device_ms_cold"]}
             emit(row)
             if not err <= bound:
                 raise AssertionError(f"B3 disagrees with its plain version: {row}")
             rows.append(row)
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -760,6 +899,7 @@ def phase_attn_variants(torch, device, launches: Launches, smi):
         C = C3 // 3
         qkv = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
         library_ms = event_ms(lambda: perf_probe.sdpa_packed(qkv, H), 20, torch)
+        library_device = call_device_ms(lambda: perf_probe.sdpa_packed(qkv, H), 10, torch)
         bms, by = bound_ms(4 * B * T * C * qkv.element_size(), 4.0 * B * T * T * C,
                            "bfloat16")
         for tool in tools:
@@ -784,7 +924,7 @@ def phase_attn_variants(torch, device, launches: Launches, smi):
                        "device_ms": device_ms(lambda: v.fn(qkv), f"{kernel}_kernel", 10, torch),
                        "bound_ms": bms, "bound_by": by,
                        "plain_ms": event_ms(lambda: v.fn.plain(qkv), 5, torch),
-                       "library_ms": library_ms,
+                       "library_ms": library_ms, "library_device_ms": library_device,
                        "sdpa_ms_per_layer": run["sdpa_ms_per_layer"],
                        "b1_ms_per_layer": b1[(run["tool"], case)],
                        "tflops": run["tflops"], "vs_b1": run["vs_production"],
@@ -1057,22 +1197,25 @@ def phase_timing(torch, net, device, smi, family: str):
     return rows
 
 
-# the replan's kernels by device kernel name: B1, B3 LayerNorm (`kRms`
-# false), B3 RMSNorm (true), B2
+# the replan's kernels by device kernel name: B1, B3 LayerNorm (`kRms`, its
+# first template argument, false), B3 RMSNorm (true), B2
 REPLAY_KERNELS = {
     "fused_qkv_attention": lambda n: "fused_qkv_attention_kernel" in n,
-    "fused_layer_norm": lambda n: "fused_norm_kernel" in n and "false>" in n,
-    "fused_rms_norm": lambda n: "fused_norm_kernel" in n and "true>" in n,
+    "fused_layer_norm": lambda n: "fused_norm_kernel<false" in n,
+    "fused_rms_norm": lambda n: "fused_norm_kernel<true" in n,
     "small_seq_mha": lambda n: "small_seq_mha_kernel" in n}
 
 
 def replay_counts(torch, prof):
     """Launches of the replan's kernels in a profile, counted from the
-    device's own record by kernel name, and the distinct names matched."""
-    names = [e.name for e in _device_events(torch, prof)]
-    counts = {k: sum(map(match, names)) for k, match in REPLAY_KERNELS.items()}
-    return counts, sorted({n[:80] for n in names
-                           if any(m(n) for m in REPLAY_KERNELS.values())})
+    device's own record by kernel name, their device µs by name, and the
+    distinct names matched."""
+    events = _device_events(torch, prof)
+    counts = {k: sum(match(e.name) for e in events) for k, match in REPLAY_KERNELS.items()}
+    us = {k: sum(e.time_range.elapsed_us() for e in events if match(e.name))
+          for k, match in REPLAY_KERNELS.items()}
+    return counts, us, sorted({e.name[:80] for e in events
+                               if any(m(e.name) for m in REPLAY_KERNELS.values())})
 
 
 def phase_graph(torch, net, device, launches: Launches, smi, family: str):
@@ -1095,7 +1238,7 @@ def phase_graph(torch, net, device, launches: Launches, smi, family: str):
     by_name = {k: cached[k] for k in REPLAY_KERNELS}
     policy.reset()  # forgets the goal: the first replan encodes it again
     launches.reset()
-    per_replan, profiled, names = [], [], set()
+    per_replan, profiled, profiled_us, names = [], [], [], set()
     for step in range(3 * cfg.multistep):
         if step % cfg.multistep:
             policy.step(obs, goal)
@@ -1111,8 +1254,9 @@ def phase_graph(torch, net, device, launches: Launches, smi, family: str):
                 torch.cuda.synchronize()
                 policy.step(obs, goal)
                 torch.cuda.synchronize()
-            counts, seen = replay_counts(torch, prof)
+            counts, us, seen = replay_counts(torch, prof)
             profiled.append(counts)
+            profiled_us.append(us)
             names.update(seen)
         after = launches.read()
         per_replan.append({k: after[k] - before[k] for k in after})
@@ -1134,7 +1278,8 @@ def phase_graph(torch, net, device, launches: Launches, smi, family: str):
     fresh = all(not torch.equal(*chunks[(m, "graph")]) for m in ("lang", "vis"))
     row = {"phase": "graph", "family": family, "launches_per_replan": per_replan,
            "expected_per_replan": expected, "replay_kernels_by_name": profiled,
-           "expected_by_name": by_name, "kernel_names": sorted(names),
+           "expected_by_name": by_name, "replay_kernels_us": profiled_us,
+           "kernel_names": sorted(names),
            "max_abs_err_graph_vs_eager": errs, "bit_equal": equal,
            "second_replay_differs": fresh, "card": smi}
     emit(row)
@@ -1555,6 +1700,10 @@ def profile_calls(torch, fn, n: int, host_top: int = 0):
             "b3_share": share("fused_norm_kernel"),
             "b4_b5_share": share("halfblock_"),
             "b2_share": share("small_seq_mha_kernel"),
+            # the replan's kernels' device µs a call, by name
+            "replay_kernels_us_per_call": {
+                k: sum(v for name, v in by_name.items() if match(name)) * 1e3 / n
+                for k, match in REPLAY_KERNELS.items()},
             "top_kernels_ms_per_call": [[k[:90], v / n] for k, v in top],
             **({"host_top_self_us_per_call": [[a.key[:60], a.count / n,
                                                a.self_cpu_time_total / n] for a in host]}
@@ -1851,8 +2000,9 @@ def halfblock_part_rows(torch, tower, kernel, tensors, kw, split, device):
     """The norm pass and each GEMM of one B4 or B5 call alone
     (`ops/halfblock_gemm.py`) against its plain version on the same inputs
     (the GEMMs on a seeded N(0, 1) A), with its event, device, plain and
-    library ms (F.linear; F.layer_norm or F.rms_norm*), its bound, and its
-    share of the call's device time (`split`, by kernel name)."""
+    library ms (F.linear; F.layer_norm or F.rms_norm*; event and device),
+    its bound, and its share of the call's device time (`split`, by kernel
+    name)."""
     import torch.nn.functional as F
     from mdt_policy_tpu_torch.ops.halfblock_gemm import (
         EPILOGUES, halfblock_gemm, halfblock_gemm_reference, halfblock_norm,
@@ -1896,7 +2046,9 @@ def halfblock_part_rows(torch, tower, kernel, tensors, kw, split, device):
                "bound": bound, "ms": event_ms(lambda: fn(*args), 20, torch),
                "device_ms": device_ms(lambda: fn(*args), name, 5, torch),
                "plain_ms": event_ms(lambda: ref(*args), 20, torch),
-               "library_ms": event_ms(lib, 20, torch), "bound_ms": bms, "bound_by": by,
+               "library_ms": event_ms(lib, 20, torch),
+               "library_device_ms": call_device_ms(lib, 5, torch),
+               "bound_ms": bms, "bound_by": by,
                "share_of_call": sum(mine) / max(call_ms, 1e-9)}
         emit(row)
         if not err <= bound:
@@ -3119,7 +3271,8 @@ def summary(rows, paths):
         main = next(r for r in mine if r["shape"] == shape and r["dtype"] == dtype)
         entry = kernel_entry(name, f"mdt_policy_tpu_torch/csrc/{source}", replaces,
                              sum(p[name] for p in paths.values()), mine, main)
-        for key in ("unfused_ms", "host_us"):
+        for key in ("unfused_ms", "host_us", "device_ms_cold", "bound_share_cold",
+                    "pr7_device_ms", "pr7_device_ms_cold"):
             if key in main:
                 entry[key] = main[key]
         entry["paths"] = list(own)

@@ -58,16 +58,16 @@ def digest(name: str, csrc: Path = CSRC) -> str:
 
 
 @functools.cache
-def load_library(name: str) -> ctypes.CDLL:
-    """Build `csrc/<name>.cu` if its library is missing, then load it.
+def load_library(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
+    """Build `<csrc>/<name>.cu` if its library is missing, then load it.
     Raises on a failed build, with the compiler's output."""
-    out = BUILD_DIR / f"{name}-{digest(name)}.so"
+    out = BUILD_DIR / f"{name}-{digest(name, csrc)}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(csrc / f"{name}.cu")]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {name}.cu "

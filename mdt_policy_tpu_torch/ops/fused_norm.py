@@ -32,7 +32,7 @@ from . import _build
 from ._plain_backward import launch_with_plain_backward
 
 __all__ = ["fused_layer_norm", "fused_layer_norm_reference", "fused_rms_norm",
-           "fused_rms_norm_reference"]
+           "fused_rms_norm_reference", "launch_plan"]
 
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -87,9 +87,9 @@ def _check(name: str, x: torch.Tensor, *weights: torch.Tensor) -> None:
 
 @functools.cache
 def _kernels():
-    """The ctypes functions of `csrc/fused_norm.cu` (LayerNorm, RMSNorm) and
-    the widest row each input dtype takes, built, loaded and typed once per
-    process."""
+    """The ctypes functions of `csrc/fused_norm.cu` (LayerNorm, RMSNorm), the
+    widest row each input dtype takes and the launch plan's function, built,
+    loaded and typed once per process."""
     lib = _build.load_library("fused_norm")
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     layer_norm, rms_norm = lib.mdt_fused_layer_norm, lib.mdt_fused_rms_norm
@@ -98,15 +98,33 @@ def _kernels():
     layer_norm.restype = rms_norm.restype = ctypes.c_int
     lib.mdt_fused_norm_max_width.argtypes = [i]
     lib.mdt_fused_norm_max_width.restype = i
+    lib.mdt_fused_norm_plan.argtypes = [ctypes.c_longlong, i, i,
+                                        ctypes.POINTER(ctypes.c_longlong)]
+    lib.mdt_fused_norm_plan.restype = i
     max_width = {dt: lib.mdt_fused_norm_max_width(int(dt == torch.bfloat16))
                  for dt in (torch.float32, torch.bfloat16)}
-    return layer_norm, rms_norm, max_width
+    return layer_norm, rms_norm, max_width, lib.mdt_fused_norm_plan
+
+
+def launch_plan(rows: int, D: int, dtype: torch.dtype) -> dict:
+    """How the kernel runs a call on (rows, D) rows of `dtype` on the current
+    CUDA device, LayerNorm or RMSNorm: lanes a row, 16-byte vectors a lane,
+    blocks, warps a block, and whether it takes the path of many rows (no
+    thread holds the weights while its rows are in flight) or of few (the
+    weights loaded into registers beside the rows)."""
+    plan = (ctypes.c_longlong * 5)()
+    rc = _kernels()[3](rows, D, int(dtype is torch.bfloat16), plan)
+    if rc != 0:
+        raise RuntimeError(f"fused_norm: no launch plan for ({rows}, {D}) {dtype} "
+                           f"(error {rc})")
+    return {"lanes": plan[0], "vectors_per_lane": plan[1], "blocks": plan[2],
+            "warps_per_block": plan[3], "many_rows": bool(plan[4])}
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
             eps: float) -> torch.Tensor:
     """One kernel launch: LayerNorm when `b` is given, else RMSNorm."""
-    layer_norm, rms_norm, max_width = _kernels()
+    layer_norm, rms_norm, max_width, _ = _kernels()
     name = "fused_layer_norm" if b is not None else "fused_rms_norm"
     D = x.shape[-1]
     if D > max_width[x.dtype]:
@@ -123,8 +141,8 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                         eps, is_bf16, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc} for x "
-                           f"{tuple(x.shape)} {x.dtype} (error 1: more rows than the "
-                           "grid holds, or an input or weight not 16-byte aligned)")
+                           f"{tuple(x.shape)} {x.dtype} (error 1: an input or weight "
+                           "not 16-byte aligned, or more rows than the grid holds)")
     _build.count_launch(fused_rms_norm if b is None else fused_layer_norm)
     return out
 

@@ -207,15 +207,29 @@ def test_plain_versions_pass_gradcheck():
 
 # (function, rows, D): the path's shapes at one replan (Voltron, B=1) and at
 # B=128 per scope (Voltron 256 images, CLIP vision 128, CLIP text 128 goals,
-# foresight decoder 128 x (4 context + 98 patch tokens))
+# foresight decoder 128 x (4 context + 98 patch tokens)); then every layout
+# of the kernel's dispatch (lanes a row x 16-byte vectors a lane, bf16 /
+# f32): D=8 1x1 / 2x1, 24 1x3 / 2x3, 32 4x1 / 8x1, 64 8x1 / 16x1, 96 4x3 /
+# 8x3, 128 16x1 / 32x1, 192 8x3 / 16x3, 256 32x1 / 32x2, 384 16x3 / 32x3,
+# 512 32x2 / 32x4, 768 32x3 / 32x6, the widest 32x8 / 32x8; 40 (2x3 / 4x3)
+# and 1000 (32x4 / 32x8), where no split is exact and some slots idle; at
+# 1 row, 7, 393 and 12,545 (ragged against any rows a warp or a block)
+WIDEST = "widest"  # 2048 in bf16, 1024 in f32
 CUDA_SHAPES = [("rms", 392, 384), ("rms", 50176, 384), ("ln", 25216, 768),
-               ("ln", 9856, 512), ("rms", 13056, 192)]
+               ("ln", 9856, 512), ("rms", 13056, 192)] + [
+    (kind, rows, D) for D in (8, 24, 32, 64, 96, 128, 192, 256, 384, 512, 768, WIDEST, 40,
+                              1000)
+    for rows in (1, 7, 393, 12545) for kind in ("ln", "rms")]
 CUDA_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
 
 
-def _cuda_inputs(rows, D, dtype, seed):
+def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+
+
+def _cuda_inputs(rows, D, dtype, seed):
+    _need_card()
     gen = torch.Generator("cuda").manual_seed(seed)
     x = (torch.randn((rows, D), generator=gen, device="cuda") * 3).to(dtype)
     w = torch.randn((D,), generator=gen, device="cuda").to(dtype)
@@ -228,7 +242,10 @@ def _cuda_inputs(rows, D, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_kernel_matches_plain(kind, rows, D, dtype):
     """The kernel against its plain version on the card at the path's
-    shapes; bound relative to max(1, max|ref|) (one bf16 rounding)."""
+    shapes and at every layout; bound relative to max(1, max|ref|) (one
+    bf16 rounding)."""
+    if D == WIDEST:
+        D = {torch.float32: 1024, torch.bfloat16: 2048}[dtype]
     x, w, b = _cuda_inputs(rows, D, dtype, 0)
     counter = fused_rms_norm if kind == "rms" else fused_layer_norm
     before = counter.launches
@@ -241,6 +258,72 @@ def test_cuda_kernel_matches_plain(kind, rows, D, dtype):
     assert out.dtype == dtype
     bound = CUDA_TOL[dtype] * max(1.0, ref.float().abs().max().item())
     assert (out.float() - ref.float()).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,layout", [
+    (torch.bfloat16, 384, (16, 3)), (torch.bfloat16, 192, (8, 3)),
+    (torch.bfloat16, 512, (32, 2)), (torch.bfloat16, 768, (32, 3)),
+    (torch.float32, 384, (32, 3)), (torch.float32, 192, (16, 3)),
+    (torch.float32, 512, (32, 4)), (torch.float32, 768, (32, 6))])
+def test_cuda_path_widths_split_evenly(dtype, D, layout):
+    """At the path's widths every lane holds the same number of 16-byte
+    vectors: (lanes a row, vectors a lane). The widest row is the old
+    kernel's, and one wider raises."""
+    _need_card()
+    plan = fn.launch_plan(392, D, dtype)
+    assert (plan["lanes"], plan["vectors_per_lane"]) == layout
+    widest = {torch.float32: 1024, torch.bfloat16: 2048}[dtype]
+    assert fn._kernels()[2][dtype] == widest
+    x, w, _ = _cuda_inputs(2, widest + 8, dtype, 0)
+    with pytest.raises(ValueError, match="row width"):
+        fused_rms_norm(x, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [392, 12544, 50176])
+def test_cuda_grid_spreads_few_rows_and_stages_many(rows):
+    """One step of rows a warp. Rows that fill the card's warps at most once
+    spread over the SMs in blocks of few warps; more rows take blocks of 8
+    warps, the path of many rows."""
+    _need_card()
+    plan = fn.launch_plan(rows, 384, torch.bfloat16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    warp_steps = -(-rows // (32 // plan["lanes"]))
+    assert plan["blocks"] == -(-warp_steps // plan["warps_per_block"])
+    if rows == 392:
+        assert not plan["many_rows"]
+        assert plan["blocks"] <= sms and plan["warps_per_block"] < 8
+    else:
+        assert plan["many_rows"] and plan["warps_per_block"] == 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [393, 12545])  # the paths of few and of many rows
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_rms_norm_clamps_zero_rows(dtype, rows):
+    """All-zero rows (the clamp's branch) come out 0 on the card, not NaN,
+    beside rows below eps and ordinary rows, as the plain version."""
+    x, w, _ = _cuda_inputs(rows, 384, dtype, 5)
+    x[::3] = 0
+    x[1::6] = 1e-12
+    out, ref = fused_rms_norm(x, w), fused_rms_norm_reference(x, w, 1e-8)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and (out[::3] == 0).all()
+    bound = CUDA_TOL[dtype] * max(1.0, ref.float().abs().max().item())
+    assert (out.float() - ref.float()).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ln", "rms"])
+def test_cuda_misaligned_input_raises(kind):
+    """An input whose start is not 16-byte aligned (a contiguous view one
+    element into its storage) raises instead of launching."""
+    x, w, b = _cuda_inputs(8, 65, torch.bfloat16, 6)
+    x = x.flatten()[1:513].view(8, 64)
+    w, b = w[:64].contiguous(), b[:64].contiguous()
+    with pytest.raises(RuntimeError, match="16-byte aligned"):
+        fused_layer_norm(x, w, b) if kind == "ln" else fused_rms_norm(x, w)
 
 
 @pytest.mark.cuda
