@@ -329,14 +329,18 @@ HOST_CALLS = 1000
 # replan's B=1 (MDT-V: 4-token encoder, 10-token causal decoder, D=48; MDT:
 # 3-token encoder, causal decoder, D=64), the same at the batched rollout's
 # B=32 and at the MDT validation step's B=128 (TRAIN_BATCH a scope; the
-# encoder's 1024 rows of T=3 take the several-rows-a-block route), and the
-# four shapes of the JAX package's ops/bench_pallas.py
+# encoder's 1024 rows of T=3 take the several-rows-a-block route), the
+# sigma-token encoders' (the sigma token leads the sequence: T=5 for MDT-V,
+# T=4 for MDT, once a denoiser call) at B=1 and B=32, and the four shapes of
+# the JAX package's ops/bench_pallas.py
 SMALL_SEQ_SHAPES = (
     ("mdtv_enc", 1, 8, 4, 48, False), ("mdtv_dec", 1, 8, 10, 48, True),
     ("mdt_enc", 1, 8, 3, 64, False), ("mdt_dec", 1, 8, 10, 64, True),
     ("mdtv_enc_b32", 32, 8, 4, 48, False), ("mdtv_dec_b32", 32, 8, 10, 48, True),
     ("mdt_enc_b32", 32, 8, 3, 64, False), ("mdt_dec_b32", 32, 8, 10, 64, True),
     ("mdt_enc_val", 128, 8, 3, 64, False), ("mdt_dec_val", 128, 8, 10, 64, True),
+    ("mdtv_enc_sigma", 1, 8, 5, 48, False), ("mdt_enc_sigma", 1, 8, 4, 64, False),
+    ("mdtv_enc_sigma_b32", 32, 8, 5, 48, False), ("mdt_enc_sigma_b32", 32, 8, 4, 64, False),
     ("bench_dec_T10", 1024, 8, 10, 48, True), ("bench_enc_T4", 1024, 8, 4, 48, False),
     ("bench_enc_T23", 1024, 8, 23, 48, False), ("bench_dec_T10_B4096", 4096, 8, 10, 48, True),
 )
@@ -990,13 +994,16 @@ class Launches:
         return {name: fn.launches for name, fn in self.fns.items()}
 
 
-def b2_per_replan(cfg):
-    """Self-attentions of one replan: each encoder block once, each decoder
-    block at every step of the sampler (len(schedule) - 1 denoiser calls)."""
-    from mdt_policy_tpu_torch.diffusion import get_noise_schedule
-    steps = len(get_noise_schedule(cfg.num_sampling_steps, cfg.noise_scheduler,
-                                   cfg.sigma_min, cfg.sigma_max)) - 1
-    return cfg.n_enc_layers + cfg.n_dec_layers * steps
+def b2_per_replan(cfg, evaluations=None):
+    """Self-attentions of one replan: each decoder block at every denoiser
+    call (the sampler's `denoiser_evaluations` over the schedule, or
+    `evaluations` where the data decides them), each encoder block once
+    where the config hoists the context, else at every call too."""
+    from mdt_policy_tpu_torch.agents.mdtv_agent import hoists_context, sampling_schedule
+    from mdt_policy_tpu_torch.diffusion.samplers import denoiser_evaluations
+    calls = evaluations if evaluations is not None else \
+        denoiser_evaluations(cfg.sampler_type, sampling_schedule(cfg))
+    return cfg.n_enc_layers * (1 if hoists_context(cfg) else calls) + cfg.n_dec_layers * calls
 
 
 def expected_replan_launches(cfg, family: str):
@@ -1323,6 +1330,302 @@ def phase_b2_ab(torch, net, device, smi):
         rows.append(row)
     return rows
 
+# samplers: replans timed a (sampler, batch), the batches, and the
+# log-likelihood's kernel-vs-plain bound relative to max(1, |ll|): both
+# routes run f32 with B2 and its plain version apart by summation order (~1e-6 relative a call), over an adaptive integration whose
+# accept decisions may differ near the threshold (rtol 1e-4)
+SAMPLER_REPLANS = 20
+SAMPLER_BATCHES = (1, 32)
+LL_REL_TOL = 1e-3
+# configs: each value the port once refused, on the production width (the
+# ResNet goal tower as CLIP's RN50: clip_embed_dim and goal_dim 1024)
+CONFIG_CASES = (
+    ("sigma_token", {"use_ada_conditioning": False}),
+    ("noise_encoder", {"use_noise_encoder": True}),
+    ("no_modality_encoder", {"use_modality_encoder": False}),
+    ("linear_goal", {"use_mlp_goal": False}),
+    ("bf16_denoiser", {"denoiser_compute_dtype": "bfloat16"}),
+    ("resnet_goal", {"clip_vision_family": "resnet", "clip_embed_dim": 1024,
+                     "goal_dim": 1024}),
+    ("trainable_img_encoder", {"freeze_img_encoder": False}),
+    ("lognormal", {"sigma_sample_density_type": "lognormal"}),
+    ("embed_pdrob", {"embed_pdrob": 0.1}),
+    ("goal_drop", {"goal_drop": 0.1}),
+)
+MDT_CONFIG_CASES = ("sigma_token", "noise_encoder", "bf16_denoiser")
+CONFIG_REPLANS = 20  # per turn of the bf16 / f32 denoiser timing (4 turns)
+TOWER_BATCHES = (1, TRAIN_BATCH)
+
+
+def _diff(before, after):
+    return {k: after[k] - before[k] for k in after}
+
+
+def _add(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def sampler_chunks(torch, net, obs, goal, device, seed, routes):
+    """The first replan's chunk of a fresh policy for each route from one
+    seed: "graph" (captured, with the first plan's host ms, the capture
+    included) and "eager", and "plain" (eager through every kernel's plain
+    version)."""
+    from mdt_policy_tpu_torch.agents import MDTVPolicy
+    out, first_ms = {}, None
+    for route in routes:
+        policy = MDTVPolicy(net, generator=torch.Generator(device).manual_seed(seed),
+                            cuda_graph=route == "graph")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with plain_kernels() if route == "plain" else contextlib.nullcontext():
+            out[route] = policy.plan(obs, goal)
+        torch.cuda.synchronize()
+        if route == "graph":
+            first_ms, out["policy"] = (time.perf_counter() - t0) * 1e3, policy
+    return out, first_ms
+
+
+def phase_samplers(torch, net, device, launches: Launches, smi):
+    """Every sampler of the suite through MDT-V's policy at the production
+    width, at B=1 and B=32 (text goal): the graph replan against the eager
+    one from one seed (the same kernels on the same inputs: bit-equal), the
+    kernel route against the plain versions on the chunk (E2E_REL_TOL), the
+    denoiser calls and B2's launches a replan against the formula
+    (`denoiser_evaluations`), p50/p90 over SAMPLER_REPLANS replans and the
+    first plan's ms with the capture. dpm_adaptive runs eagerly (a graph
+    cannot replay host decisions): its steps and calls from `stats`, B2 by
+    the same formula at the calls it made. Then `log_likelihood` of a chunk
+    with the kernels and with B2 routed to its plain version: their
+    forward-mode products go through the plain version either way."""
+    from mdt_policy_tpu_torch.agents import denoise_actions
+    from mdt_policy_tpu_torch.agents.mdtv_agent import sampling_schedule
+    from mdt_policy_tpu_torch.diffusion import precond_denoise
+    from mdt_policy_tpu_torch.diffusion.samplers import (SAMPLER_NAMES, denoiser_evaluations,
+                                                         log_likelihood)
+    from mdt_policy_tpu_torch.models import blocks
+    from mdt_policy_tpu_torch.ops.small_seq_mha import small_seq_mha_reference
+    base, total, rows = net.cfg, {}, []
+    try:
+        for name in SAMPLER_NAMES:
+            net.cfg = cfg = dataclasses.replace(base, sampler_type=name)
+            adaptive = name == "dpm_adaptive"
+            for batch in SAMPLER_BATCHES:
+                obs, goal = make_inputs(torch, cfg, batch, seed=60, device=device)
+                launches.reset()
+                chunks, first_ms = sampler_chunks(
+                    torch, net, obs, goal, device, 61,
+                    ("eager", "plain") if adaptive else ("graph", "eager", "plain"))
+                policy = chunks.pop("policy", None)
+                if policy is None:  # dpm_adaptive: the eager policy, steps counted
+                    from mdt_policy_tpu_torch.agents import MDTVPolicy
+                    policy = MDTVPolicy(net, generator=torch.Generator(device).manual_seed(62))
+                plan = lambda: policy.plan(obs, goal).cpu()
+                plan()  # the goal encoded and cached
+                before = launches.read()
+                plan()
+                per_replan = _diff(before, launches.read())
+                stats = {}
+                if adaptive:
+                    with torch.no_grad():
+                        emb = net.perceive(obs["rgb_static"], obs["rgb_gripper"])
+                        lang = net.encode_language_goal(goal["lang_tokens"])
+                        before = launches.read()
+                        denoise_actions(net, emb, lang, stats=stats,
+                                        generator=torch.Generator(device).manual_seed(63))
+                        per_call = _diff(before, launches.read())
+                    calls = stats["evaluations"]
+                    b2_ok = per_call["small_seq_mha"] == b2_per_replan(cfg, calls)
+                else:
+                    calls = denoiser_evaluations(name, sampling_schedule(cfg))
+                    b2_ok = per_replan["small_seq_mha"] == b2_per_replan(cfg)
+                times = event_times(torch, plan, SAMPLER_REPLANS)
+                _add(total, launches.read())
+                ref = chunks["plain"]
+                err = (chunks["eager"] - ref).abs().max().item()
+                row = {"phase": "samplers", "sampler": name, "batch": batch,
+                       "route": "eager" if adaptive else "graph",
+                       "denoiser_calls": calls, "b2_per_replan": per_replan["small_seq_mha"],
+                       "b2_expected": b2_per_replan(cfg, calls if adaptive else None),
+                       "b2_ok": b2_ok, "launches_per_replan": per_replan,
+                       "max_abs_err_kernel_vs_plain": err,
+                       "bound": E2E_REL_TOL * max(1.0, ref.abs().max().item()),
+                       "finite": bool(torch.isfinite(chunks["eager"]).all()),
+                       "replans": len(times),
+                       "replan_ms_p50": float(np.percentile(times, 50)),
+                       "replan_ms_p90": float(np.percentile(times, 90)),
+                       "first_plan_ms_with_capture": first_ms, "card": smi}
+                if adaptive:
+                    row.update(steps=stats["steps"], accepted=stats["accepted"])
+                else:
+                    row["graph_equals_eager"] = bool(torch.equal(chunks["graph"],
+                                                                 chunks["eager"]))
+                emit(row)
+                rows.append(row)
+                del policy, chunks
+                if not (row["finite"] and err <= row["bound"] and b2_ok
+                        and row.get("graph_equals_eager", True)):
+                    raise AssertionError(f"sampler {name} at B={batch} failed: {row}")
+            torch.cuda.empty_cache()
+    finally:
+        net.cfg = base
+    # log_likelihood of a DDIM chunk, kernel route against B2's plain version
+    obs, goal = make_inputs(torch, base, 1, seed=64, device=device)
+    with torch.no_grad():
+        emb = net.perceive(obs["rgb_static"], obs["rgb_gripper"])
+        lang = net.encode_language_goal(goal["lang_tokens"])
+        x = denoise_actions(net, emb, lang, generator=torch.Generator(device).manual_seed(65))
+        context = net.encode_context(emb, lang[:, None], modality="lang")
+
+    def denoise(xx, sigma):
+        sb = torch.full((1,), float(sigma), device=device)
+        return precond_denoise(lambda xin, s: net.decode_actions(context, xin, s), xx, sb,
+                               base.sigma_data)
+
+    lls, ll_stats = {}, {}
+    for route in ("kernel", "plain"):
+        ll_stats[route] = {}
+        before = launches.read()
+        with mock.patch.object(blocks, "small_seq_mha", small_seq_mha_reference) \
+                if route == "plain" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            lls[route] = log_likelihood(
+                denoise, x, base.sigma_min, base.sigma_max, stats=ll_stats[route],
+                generator=torch.Generator(device).manual_seed(66))
+            torch.cuda.synchronize()
+            ll_stats[route]["seconds"] = time.perf_counter() - t0
+        ll_stats[route]["b2_launches"] = _diff(before, launches.read())["small_seq_mha"]
+    _add(total, {"small_seq_mha": ll_stats["kernel"]["b2_launches"]})
+    ll_err = (lls["kernel"] - lls["plain"]).abs().max().item()
+    row = {"phase": "samplers_log_likelihood", "ll_kernel": lls["kernel"].tolist(),
+           "ll_plain": lls["plain"].tolist(), "max_abs_err": ll_err,
+           "bound": LL_REL_TOL * max(1.0, lls["plain"].abs().max().item()),
+           "stats": ll_stats, "card": smi}
+    emit(row)
+    if not (torch.isfinite(lls["kernel"]).all() and ll_err <= row["bound"]
+            and ll_stats["kernel"]["b2_launches"] > 0 and ll_stats["plain"]["b2_launches"] == 0):
+        raise AssertionError(f"log_likelihood kernel and plain routes disagree: {row}")
+    return total, rows
+
+
+def _config(family, over):
+    from mdt_policy_tpu_torch.agents import MDTConfig, MDTVConfig
+    return (MDTVConfig if family == "mdtv" else MDTConfig)(**over)
+
+
+def phase_configs(torch, device, launches: Launches, smi, base_nets):
+    """Each config value the port once refused (CONFIG_CASES), one at a time
+    on the production MDT-V config, and the sigma-token, noise-encoder and
+    bf16 denoisers on MDT's: a net of seeded random weights; a graph replan
+    at B=1 and B=32 with the goal cached, its launches against the formula
+    (the sigma-token and noise-encoder configs encode at every denoiser
+    call: MDT-V's B2 80 a DDIM-10 replan), the B=1 graph chunk bit-equal to
+    the eager one; for the ResNet goal tower also a goal-image replan and
+    the tower's device ms at TOWER_BATCHES; one train step at B=128 per
+    stream with finite losses and its launches; for the bf16 denoiser the
+    replan's p50 and device ms beside the f32 denoiser's (`base_nets`) in
+    turns (f32, bf16, bf16, f32) at B=1 and B=32. Returns the launches of
+    the phase and of its bf16 denoiser replans."""
+    from mdt_policy_tpu_torch.agents import init_train_state, train_step
+    total, bf16_total, rows = {}, {}, []
+    cases = [("mdtv", c, o) for c, o in CONFIG_CASES] + \
+        [("mdt", c, o) for c, o in CONFIG_CASES if c in MDT_CONFIG_CASES]
+    batches = {}
+    for family, case, over in cases:
+        cfg = _config(family, over)
+        net = build_net(torch, cfg, device)
+        row = {"phase": "configs", "family": family, "case": case, "overrides": over,
+               "card": smi}
+        launches.reset()
+        for batch in (1, 32):
+            obs, goal = make_inputs(torch, cfg, batch, seed=70, device=device)
+            chunks, first_ms = sampler_chunks(torch, net, obs, goal, device, 71,
+                                              ("graph", "eager") if batch == 1 else ("graph",))
+            policy = chunks.pop("policy")
+            policy.plan(obs, goal)
+            before = launches.read()
+            chunk = policy.plan(obs, goal)
+            row[f"launches_b{batch}"] = _diff(before, launches.read())
+            row[f"first_plan_ms_with_capture_b{batch}"] = first_ms
+            row[f"finite_b{batch}"] = bool(torch.isfinite(chunk).all())
+            if batch == 1:
+                row["graph_equals_eager"] = bool(torch.equal(chunks["graph"], chunks["eager"]))
+            if case == "resnet_goal":
+                image = {"rgb_static_goal": obs["rgb_static"][:, 0]}
+                policy.plan(obs, image)
+                before = launches.read()
+                vis = policy.plan(obs, image)
+                row[f"goal_image_launches_b{batch}"] = _diff(before, launches.read())
+                row[f"goal_image_finite_b{batch}"] = bool(torch.isfinite(vis).all())
+            del policy, chunks
+        expected = expected_replan_launches(cfg, family)[1]
+        row["expected_per_replan"] = expected
+        ok = row["launches_b1"] == row["launches_b32"] == expected \
+            and row["finite_b1"] and row["finite_b32"] and row["graph_equals_eager"]
+        if case == "resnet_goal":
+            ok = ok and all(row[f"goal_image_launches_b{b}"] == expected
+                            and row[f"goal_image_finite_b{b}"] for b in (1, 32))
+            gen = torch.Generator(device).manual_seed(72)
+            for b in TOWER_BATCHES:
+                img = torch.randn((b, cfg.img_size, cfg.img_size, 3), generator=gen,
+                                  device=device)
+                row[f"tower_ms_b{b}"] = event_ms(lambda: net.encode_visual_goal(img), 10, torch)
+                row[f"tower_device_ms_b{b}"] = call_device_ms(
+                    lambda: net.encode_visual_goal(img), 5, torch)
+            row["tower_dtype"] = str(net.visual_goal.conv1.weight.dtype)
+        _add(total, launches.read())
+        if case == "bf16_denoiser":
+            _add(bf16_total, launches.read())
+            row["timing"] = bf16_timing(torch, base_nets[family], net, device)
+        # one train step at B=128 per stream
+        if family not in batches:
+            batches[family] = make_train_batch(torch, cfg, TRAIN_BATCH, device)
+        state = init_train_state(net)
+        launches.reset()
+        metrics = train_step(state, batches[family], generator=torch.Generator(device)
+                             .manual_seed(73))
+        torch.cuda.synchronize()
+        row["train_launches"] = launches.read()
+        _add(total, row["train_launches"])
+        row["train_metrics"] = {k: float(v) for k, v in metrics.items()}
+        row["train_expected"] = (expected_train_launches if family == "mdtv"
+                                 else expected_mdt_train_launches)(cfg)
+        ok = ok and all(np.isfinite(v) for v in row["train_metrics"].values()) \
+            and row["train_launches"] == row["train_expected"]
+        row["ok"] = bool(ok)
+        emit(row)
+        rows.append(row)
+        del net, state
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"config {family}/{case} failed: {row}")
+    return total, bf16_total, rows
+
+
+def bf16_timing(torch, f32_net, bf16_net, device):
+    """The graph replan's p50/p90 of the f32 and the bf16 denoiser in turns
+    (f32, bf16, bf16, f32), CONFIG_REPLANS a turn, and each one's device ms
+    and B2 device µs a replan from the profiler, at B=1 and B=32."""
+    out = {}
+    for batch in (1, 32):
+        routes = {"f32": replanner(torch, f32_net, batch, device, seed=74)[0],
+                  "bf16": replanner(torch, bf16_net, batch, device, seed=74)[0]}
+        times = {"f32": [], "bf16": []}
+        for route in ("f32", "bf16", "bf16", "f32"):
+            times[route] += event_times(torch, routes[route], CONFIG_REPLANS)
+        for route, fn in routes.items():
+            prof = profile_calls(torch, fn, 5)
+            out[f"b{batch}_{route}"] = {
+                "replan_ms_p50": float(np.percentile(times[route], 50)),
+                "replan_ms_p90": float(np.percentile(times[route], 90)),
+                "device_ms_per_replan": prof["device_ms_per_call"],
+                "b2_device_us_per_replan":
+                    prof["replay_kernels_us_per_call"]["small_seq_mha"],
+                "busy_share": prof["busy_share"]}
+        del routes
+    return out
+
+
 def oracle_results(seqs, never):
     """Chain scores under the scripted oracle: every task solves
     ROLLOUT_SOLVE_AT steps into its rollout except `never`, so a chain
@@ -1506,10 +1809,12 @@ def expected_train_launches(cfg):
     in Voltron's encoder_norm and CLIP vision's ln_pre, ln_1/ln_2, ln_post
     (each scope) and CLIP text's ln_1/ln_2, ln_final (lang scope); B3 RMSNorm
     in the Voltron and foresight-decoder blocks and decoder_norm (each
-    scope) and the MAP head's two norms (twice, lang scope)."""
-    return {"fused_qkv_attention": 2 * cfg.vit_depth + 2 * cfg.clip_vision_layers
+    scope) and the MAP head's two norms (twice, lang scope). The ResNet
+    goal tower runs none of the port's kernels."""
+    vision = cfg.clip_vision_layers if cfg.clip_vision_family == "vit" else None
+    return {"fused_qkv_attention": 2 * cfg.vit_depth + 2 * (vision or 0)
             + cfg.clip_text_layers,
-            "fused_layer_norm": 2 * (1 + 2 * cfg.clip_vision_layers + 2)
+            "fused_layer_norm": 2 * (1 + (2 * vision + 2 if vision else 0))
             + 2 * cfg.clip_text_layers + 1,
             "fused_rms_norm": 2 * 2 * cfg.vit_depth
             + 2 * (2 * cfg.gen_decoder_depth + 1) + 2 * 2, **NO_HALFBLOCKS, **NO_DENOISER,
@@ -1524,8 +1829,9 @@ def expected_mdt_train_launches(cfg):
     the foresight decoder's blocks and decoder_norm (each scope). No MAP
     head, no B2 (dropout is on); the ResNets and their GroupNorms run no
     kernel of the port."""
-    return {"fused_qkv_attention": 2 * cfg.clip_vision_layers + cfg.clip_text_layers,
-            "fused_layer_norm": 2 * (1 + 2 * cfg.clip_vision_layers + 1)
+    vision = cfg.clip_vision_layers if cfg.clip_vision_family == "vit" else 0
+    return {"fused_qkv_attention": 2 * vision + cfg.clip_text_layers,
+            "fused_layer_norm": 2 * (2 * vision + 2 if vision else 0)
             + 2 * cfg.clip_text_layers + 1,
             "fused_rms_norm": 2 * (2 * cfg.gen_decoder_depth + 1), **NO_HALFBLOCKS,
             **NO_DENOISER, **NO_VARIANTS}
@@ -3180,6 +3486,10 @@ def main() -> int:
     phase_graph(torch, mdt, device, launches, smi, "mdt")
     phase_e2e(torch, mdt, device, launches, "mdt")
     phase_timing(torch, mdt, device, smi, "mdt")
+    paths["samplers"], _ = phase_samplers(torch, net, device, launches, smi)
+    paths["configs"], paths["configs_bf16"], _ = phase_configs(
+        torch, device, launches, smi, {"mdtv": net, "mdt": mdt})
+    torch.cuda.empty_cache()
     paths["rollout"], _ = phase_rollout(torch, {"mdtv": net, "mdt": mdt}, device,
                                         launches, smi)
     torch.cuda.empty_cache()
@@ -3240,7 +3550,7 @@ def summary(rows, paths):
     f32 denoiser), with its launches on each path; fails if a kernel was not
     launched on one of the paths it belongs to."""
     replans = ("replan", "mdt_replan", "rollout", "evaluate_cli", "train_cli", "train_rollout",
-               "video")
+               "video", "samplers", "configs")
     entries = []
     for name, source, replaces, kind, shape, dtype, own in (
             ("fused_qkv_attention", "fused_qkv_attention.cu",
@@ -3254,10 +3564,10 @@ def summary(rows, paths):
              "b3", "voltron_train", "bfloat16", ("replan", "rollout", "evaluate_cli", "train",
                                                  "mdt_train", "mdt_validation", "cache_train",
                                                  "train_cli", "extract_cli", "train_rollout",
-                                                 "video", "ddp")),
+                                                 "video", "ddp", "samplers", "configs")),
             ("small_seq_mha", "small_seq_mha.cu",
              "mdt_policy_tpu/ops/pallas_attention.py:77", "b2", "mdtv_dec_b32", "float32",
-             replans + ("mdt_validation", "extract_cli")),
+             replans + ("mdt_validation", "extract_cli", "configs_bf16")),
             ("attention_halfblock", "attention_halfblock.cu",
              "mdt_policy_tpu/ops/attention_halfblock.py:145", "hb", "voltron", "bfloat16",
              ("extract", "extract_cli")),

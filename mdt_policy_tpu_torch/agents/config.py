@@ -5,10 +5,10 @@ round-trips between the two packages.
 Fields that only the TPU build reads (`scan_tower_layers`,
 `voltron_blocks_2d`, `remat_perceiver`, `fused_tower_attention`) and
 `fuse_camera_batch` (always on in the port) are kept as inert fields: the
-port accepts them and ignores them. `MDTVAgentNet` rejects values of the
-other fields that the port does not implement yet. `filter_retired_overrides`
-drops the keys of the JAX package's retired experiments from a run
-snapshot.
+port accepts them and ignores them; every other field's values are the
+JAX package's (sampler, density, denoiser and goal-tower options
+included). `filter_retired_overrides` drops the keys of the JAX package's
+retired experiments from a run snapshot.
 """
 
 from __future__ import annotations
@@ -116,7 +116,7 @@ class MDTVConfig:
     gen_mask_ratio: float = 0.75
     img_gen_frame_diff: int = 3
     gen_compute_dtype: str = "bfloat16"
-    # compute dtype of the denoiser's block stacks (the port has float32)
+    # compute dtype of the denoiser's block stacks (parameters stay float32)
     denoiser_compute_dtype: str = "float32"
     # factored (folded) perceiver cross-attention; False is the plain path
     perceiver_factored_kv: bool = True

@@ -33,12 +33,13 @@ import torch.nn as nn
 
 from ..diffusion import make_sample_density
 from ..models.blocks import SingleTokenProjection
-from ..models.clip import CLIPTextTower, CLIPVisionTower
+from ..models.clip import CLIPTextTower
 from ..models.masked_decoder import MaskedTransformerImgDecoder
 from ..models.mdt_transformer import MDTTransformer
 from ..models.resnet import BesoResNetEncoder
 from .config import MDTVConfig
-from .mdtv_agent import Batch, MDTVAgentNet, check_ported, default_device
+from .mdtv_agent import (Batch, MDTVAgentNet, default_device, denoiser_dtype,
+                         make_visual_goal_tower)
 
 __all__ = ["MDT_FROZEN_PREFIXES", "MDTAgentNet", "MDTConfig", "make_agent_net"]
 
@@ -65,16 +66,13 @@ class MDTAgentNet(nn.Module):
 
     def __init__(self, cfg: MDTConfig, device=None):
         super().__init__()
-        check_ported(cfg)
         device = default_device(device)
         c = self.cfg = cfg
         tower_dt = getattr(torch, c.compute_dtype)
         gen_dt = getattr(torch, c.gen_compute_dtype)
         self.static_resnet = BesoResNetEncoder(c.latent_dim)
         self.gripper_resnet = BesoResNetEncoder(c.latent_dim)
-        self.visual_goal = CLIPVisionTower(
-            c.clip_embed_dim, c.img_size, c.clip_vision_layers,
-            c.clip_vision_width, c.clip_vision_patch).to(dtype=tower_dt)
+        self.visual_goal = make_visual_goal_tower(c).to(dtype=tower_dt)
         self.language_goal = CLIPTextTower(
             c.clip_embed_dim, c.clip_context_length, c.clip_vocab_size,
             c.clip_text_width, c.clip_text_heads, c.clip_text_layers).to(dtype=tower_dt)
@@ -83,7 +81,11 @@ class MDTAgentNet(nn.Module):
             embed_dim=c.embed_dim, n_enc_layers=c.n_enc_layers,
             n_dec_layers=c.n_dec_layers, n_heads=c.n_heads,
             goal_seq_len=c.goal_seq_len, action_seq_len=c.act_window_size,
-            attn_pdrop=c.attn_pdrop, resid_pdrop=c.resid_pdrop, mlp_pdrop=c.mlp_pdrop)
+            attn_pdrop=c.attn_pdrop, resid_pdrop=c.resid_pdrop, mlp_pdrop=c.mlp_pdrop,
+            embed_pdrob=c.embed_pdrob, use_ada_conditioning=c.use_ada_conditioning,
+            use_noise_encoder=c.use_noise_encoder,
+            use_modality_encoder=c.use_modality_encoder, use_mlp_goal=c.use_mlp_goal,
+            compute_dtype=denoiser_dtype(c))
         self.gen_img = MaskedTransformerImgDecoder(
             c.gen_img_res, c.gen_patch_size, c.gen_decoder_depth,
             c.gen_decoder_dim, c.gen_decoder_heads, context_dim=c.latent_dim,
@@ -147,13 +149,15 @@ class MDTAgentNet(nn.Module):
 
     forward = MDTVAgentNet.forward  # JAX `MDTAgentNet.__call__`, mdt_agent.py:156-209
 
-    def contrastive_context(self, perceptual_emb, image_latent_goal, generator=None):
+    def contrastive_context(self, perceptual_emb, image_latent_goal, sigmas=None,
+                            generator=None, goal_mask=None):
         """The image goal's context for the contrastive loss (JAX :195-203):
         a second encode in the lang modality with `modality_embed=True`,
         which takes `lang_emb`; the main path embeds every goal with
         `goal_emb`."""
-        return self.inner.encode(perceptual_emb, image_latent_goal, modality="lang",
-                                 modality_embed=True, generator=generator)
+        return self.inner.encode(perceptual_emb, image_latent_goal, sigmas, modality="lang",
+                                 modality_embed=True, generator=generator,
+                                 goal_mask=goal_mask)
 
 
 def make_agent_net(cfg: MDTVConfig, device=None) -> nn.Module:

@@ -4,8 +4,10 @@ closed-loop replan.
 
 `MDTVAgentNet` holds every network of the agent under the JAX package's
 names: the frozen Voltron ViT (`img_encoder`), the perceiver resampler
-(`perceiver`), the frozen CLIP vision and text towers (`visual_goal`,
-`language_goal`), the denoiser (`inner`), the masked foresight decoder
+(`perceiver`), the frozen CLIP vision and text towers (`visual_goal`, a
+ViT or, with `clip_vision_family="resnet"`, CLIP's ModifiedResNet;
+`language_goal`), the denoiser (`inner`, in any of the JAX package's
+configurations), the masked foresight decoder
 (`gen_img`), the contrastive head (`clip_proj`) and its temperature
 (`logit_scale`). It builds on the CUDA device unless the caller names
 another one (`device="cpu"`).
@@ -17,10 +19,11 @@ f32, the foresight decoder keeps f32 master weights and computes in
 `gen_compute_dtype`. Public layouts are the JAX package's: images NHWC
 (B, T, H, W, 3), tokens (B, 77) int, actions (B, 10, 7).
 
-Every random number of a step (the sigma density's uniform draw, the action
-noise, the foresight mask's uniform draw, the denoiser's dropout) comes from
-a `draws` dict per scope, made by `make_draws` from an explicit
-`torch.Generator` or handed in by the caller.
+Every random number of a step (the sigma density's draw, the action noise,
+the foresight mask's uniform draw, `goal_drop`'s masks, the denoiser's
+dropout) comes from a `draws` dict per scope, made by `make_draws` from an
+explicit `torch.Generator` or handed in by the caller; so do a replan's
+initial noise and a stochastic sampler's per-step draws.
 
 A batch that carries `voltron_tokens` and `image_latent_goal` (the frozen
 towers' outputs, cached by `data/extract_embeddings.py`) is a cache batch:
@@ -44,8 +47,11 @@ import torch.nn.functional as F
 from .. import parallel
 from ..diffusion import (append_dims, get_noise_schedule, get_scalings,
                          make_sample_density, precond_denoise, sample_loop)
+from ..diffusion.densities import draw_sigma
+from ..diffusion.samplers import n_step_draws
 from ..models.blocks import ClipStyleProjection, RMSNorm
-from ..models.clip import CLIPTextTower, CLIPVisionTower
+from ..models.clip import (CLIPResNetTower, CLIPTextTower, CLIPVisionTower,
+                           FrozenBatchNorm2d)
 from ..models.masked_decoder import MaskedTransformerImgDecoder
 from ..models.mdtv_transformer import MDTVTransformer
 from ..models.perceiver import PerceiverResampler
@@ -57,11 +63,14 @@ from .config import MDTVConfig
 
 __all__ = ["FROZEN_PREFIXES", "MDTVAgentNet", "MDTVPolicy", "TrainState",
            "denoise_actions", "init_random_", "init_train_state", "make_draws",
-           "make_optimizer", "rank_draws", "reconstruction_forward", "resize_nhwc",
-           "train_step", "validation_step"]
+           "make_optimizer", "make_visual_goal_tower", "rank_draws",
+           "reconstruction_forward", "resize_nhwc", "sampling_schedule", "train_step",
+           "validation_step"]
 
 # top-level networks that stay frozen: no gradient, no optimizer state, no
-# EMA copy (JAX mdtv_agent.py:57)
+# EMA copy (JAX mdtv_agent.py:57). The Voltron tower stays here whatever
+# `freeze_img_encoder` says, as in the JAX package, whose `split_params`
+# never takes its gradient: the flag there only drops a stop_gradient.
 FROZEN_PREFIXES = ("visual_goal", "language_goal", "img_encoder")
 
 Batch = Mapping[str, torch.Tensor]
@@ -80,24 +89,22 @@ def resize_nhwc(x: torch.Tensor, size: int) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
-# config values the port implements; any other value is rejected, not ignored
-_PORTED = {"sampler_type": "ddim", "use_ada_conditioning": True,
-           "use_noise_encoder": False, "use_modality_encoder": True,
-           "use_mlp_goal": True, "denoiser_compute_dtype": "float32",
-           "clip_vision_family": "vit", "freeze_img_encoder": True,
-           "sigma_sample_density_type": "loglogistic", "embed_pdrob": 0.0,
-           "goal_drop": 0.0}
+def make_visual_goal_tower(c: MDTVConfig) -> nn.Module:
+    """The goal image tower of `c.clip_vision_family` (JAX
+    make_visual_goal_tower, mdtv_agent.py:73-88): CLIP's ModifiedResNet for
+    "resnet" (RN50: `clip_rn_layers` (3, 4, 6, 3), width 64, 1024-d
+    embeddings), else the ViT (ViT-B/16 in production)."""
+    if c.clip_vision_family == "resnet":
+        return CLIPResNetTower(c.clip_embed_dim, tuple(c.clip_rn_layers), c.clip_rn_width,
+                               c.img_size)
+    return CLIPVisionTower(c.clip_embed_dim, c.img_size, c.clip_vision_layers,
+                           c.clip_vision_width, c.clip_vision_patch)
 
 
-def check_ported(cfg: MDTVConfig) -> None:
-    """Raises NotImplementedError for a config value the port lacks."""
-    unported = {k: getattr(cfg, k) for k, v in _PORTED.items()
-                if getattr(cfg, k) != v}
-    if unported:
-        raise NotImplementedError(
-            f"config values not ported yet: {unported} (ported: the "
-            f"production values {_PORTED}; ROADMAP queue A, 'The rest, behind "
-            "the production defaults')")
+def denoiser_dtype(c: MDTVConfig) -> Optional[torch.dtype]:
+    """The denoiser blocks' compute dtype, None for float32."""
+    dt = getattr(torch, c.denoiser_compute_dtype)
+    return None if dt == torch.float32 else dt
 
 
 def default_device(device) -> torch.device:
@@ -118,7 +125,6 @@ class MDTVAgentNet(nn.Module):
 
     def __init__(self, cfg: MDTVConfig, device=None):
         super().__init__()
-        check_ported(cfg)
         device = default_device(device)
         c = self.cfg = cfg
         tower_dt = getattr(torch, c.compute_dtype)
@@ -130,9 +136,7 @@ class MDTVAgentNet(nn.Module):
             c.perceiver_dim, c.perceiver_depth, c.perceiver_dim_head,
             c.perceiver_heads, c.num_latents, c.perceiver_num_time_embeds,
             dtype=tower_dt, factored=c.perceiver_factored_kv)
-        self.visual_goal = CLIPVisionTower(
-            c.clip_embed_dim, c.img_size, c.clip_vision_layers,
-            c.clip_vision_width, c.clip_vision_patch).to(dtype=tower_dt)
+        self.visual_goal = make_visual_goal_tower(c).to(dtype=tower_dt)
         self.language_goal = CLIPTextTower(
             c.clip_embed_dim, c.clip_context_length, c.clip_vocab_size,
             c.clip_text_width, c.clip_text_heads,
@@ -145,7 +149,11 @@ class MDTVAgentNet(nn.Module):
             obs_seq_len=c.obs_seq_len, n_obs_token=c.num_latents,
             action_seq_len=c.act_window_size, use_proprio=c.use_proprio,
             attn_pdrop=c.attn_pdrop, resid_pdrop=c.resid_pdrop,
-            mlp_pdrop=c.mlp_pdrop)
+            mlp_pdrop=c.mlp_pdrop, embed_pdrob=c.embed_pdrob,
+            use_ada_conditioning=c.use_ada_conditioning,
+            use_noise_encoder=c.use_noise_encoder,
+            use_modality_encoder=c.use_modality_encoder, use_mlp_goal=c.use_mlp_goal,
+            compute_dtype=denoiser_dtype(c))
         self.gen_img = MaskedTransformerImgDecoder(
             c.gen_img_res, c.gen_patch_size, c.gen_decoder_depth,
             c.gen_decoder_dim, c.gen_decoder_heads, context_dim=c.latent_dim,
@@ -214,7 +222,7 @@ class MDTVAgentNet(nn.Module):
     def encode_visual_goal(self, goal_image: torch.Tensor, *,
                            halfblocks: bool = False) -> torch.Tensor:
         """Frozen CLIP vision embedding of a (B, H, W, 3) CLIP-normalized
-        goal frame, float32."""
+        goal frame (the ViT's or the ResNet's), float32."""
         cdt = getattr(torch, self.cfg.compute_dtype)
         return self.visual_goal(self._to_vit_size(goal_image).to(cdt), halfblocks).float()
 
@@ -246,10 +254,12 @@ class MDTVAgentNet(nn.Module):
 
     # ---- score model -----------------------------------------------------------
 
-    def encode_context(self, perceptual_emb, latent_goal, *, modality: str,
-                       generator: Optional[torch.Generator] = None):
-        return self.inner.encode(perceptual_emb, latent_goal, modality=modality,
-                                 generator=generator)
+    def encode_context(self, perceptual_emb, latent_goal, sigma=None, *, modality: str,
+                       generator: Optional[torch.Generator] = None, goal_mask=None):
+        """The encoder's context; `sigma` (B,) is read by the sigma-token
+        encoder (`use_ada_conditioning=False`) alone."""
+        return self.inner.encode(perceptual_emb, latent_goal, sigma, modality=modality,
+                                 generator=generator, goal_mask=goal_mask)
 
     def decode_actions(self, context, actions, sigma,
                        generator: Optional[torch.Generator] = None):
@@ -274,7 +284,7 @@ class MDTVAgentNet(nn.Module):
         actions = batch["actions"].float()
         generator = draws.get("dropout") if train else None
         if generator is None and train and max(c.attn_pdrop, c.resid_pdrop,
-                                               c.mlp_pdrop) > 0:
+                                               c.mlp_pdrop, c.embed_pdrob) > 0:
             raise ValueError("train mode needs draws['dropout'], a torch.Generator")
 
         perceptual_emb, image_latent_goal, latent_goal = self.encode_towers(batch, modality)
@@ -286,8 +296,14 @@ class MDTVAgentNet(nn.Module):
         c_skip, c_out, c_in = (append_dims(s, actions.ndim)
                                for s in get_scalings(sigmas, c.sigma_data))
         noised = actions + draws["noise"] * append_dims(sigmas, actions.ndim)
-        context = self.encode_context(perceptual_emb, latent_goal,
-                                      modality=modality, generator=generator)
+        goal_masks = (None, None)
+        if train and c.goal_drop > 0:
+            if "goal_mask" not in draws:
+                raise ValueError("goal_drop > 0 in train mode needs draws['goal_mask']")
+            goal_masks = draws["goal_mask"].unbind(1)
+        context = self.encode_context(perceptual_emb, latent_goal, sigmas,
+                                      modality=modality, generator=generator,
+                                      goal_mask=goal_masks[0])
         model_out = self.decode_actions(context, noised * c_in, sigmas, generator)
         target = (actions - c_skip * noised) / c_out
         action_loss = ((model_out - target) ** 2).mean()
@@ -300,7 +316,7 @@ class MDTVAgentNet(nn.Module):
         # contrastive latent alignment, lang scope only (JAX :332-340)
         if modality == "lang":
             vis_context = self.contrastive_context(perceptual_emb, image_latent_goal,
-                                                   generator)
+                                                   sigmas, generator, goal_masks[1])
             cont_loss = self.clip_auxiliary_loss(self.clip_proj(vis_context),
                                                  self.clip_proj(context))
         else:
@@ -310,12 +326,13 @@ class MDTVAgentNet(nn.Module):
         return {"action_loss": action_loss, "img_gen_loss": img_gen_loss,
                 "cont_loss": cont_loss, "total_loss": total}
 
-    def contrastive_context(self, perceptual_emb, image_latent_goal,
-                            generator: Optional[torch.Generator] = None):
+    def contrastive_context(self, perceptual_emb, image_latent_goal, sigmas=None,
+                            generator: Optional[torch.Generator] = None, goal_mask=None):
         """The image goal's context for the contrastive loss (JAX
         :332-340): the encode of the lang modality, as in JAX."""
-        return self.encode_context(perceptual_emb, image_latent_goal, modality="lang",
-                                   generator=generator)
+        return self.encode_context(perceptual_emb, image_latent_goal, sigmas,
+                                   modality="lang", generator=generator,
+                                   goal_mask=goal_mask)
 
     def clip_auxiliary_loss(self, image_features: torch.Tensor,
                             lang_features: torch.Tensor) -> torch.Tensor:
@@ -336,21 +353,37 @@ class MDTVAgentNet(nn.Module):
         return (F.cross_entropy(sim, labels) + F.cross_entropy(sim.T, labels)) / 2
 
 
-def make_draws(cfg: MDTVConfig, batch_size: int,
-               generator: torch.Generator) -> Dict:
+def make_draws(cfg: MDTVConfig, batch_size: int, generator: torch.Generator, *,
+               steps: bool = False) -> Dict:
     """The random numbers of one scope of a step, from `generator` on its
-    device: "sigma" (B,) uniform for the sigma density, "noise" (B, W, A)
-    normal action noise, "mask" (B, n_patches) uniform for the foresight
-    mask, and "dropout", the generator itself, for the denoiser's dropout."""
+    device: "sigma" (B,) the sigma density's draw (uniform for the
+    production log-logistic; `densities.DRAW_KINDS` names the others'),
+    "noise" (B, W, A) normal action noise, "mask" (B, n_patches) uniform
+    for the foresight mask, "dropout", the generator itself, for the
+    denoiser's dropout; with `goal_drop` > 0 "goal_mask" (B, 2,
+    goal_seq_len, goal_dim) bool, Bernoulli(goal_drop), the main encode's
+    and the contrastive encode's (JAX's "goal_mask" stream); and with
+    `steps` (validation's sampling) and a stochastic sampler "step_noise"
+    (B, n, W, A), its per-step draws. A train step draws no step noise, so
+    its draws and dropout masks do not depend on the sampler."""
     dev = generator.device
     n_patches = (cfg.gen_img_res // cfg.gen_patch_size) ** 2
-    return {
-        "sigma": torch.rand((batch_size,), generator=generator, device=dev),
-        "noise": torch.randn((batch_size, cfg.act_window_size, cfg.action_dim),
-                             generator=generator, device=dev),
+    shape = (batch_size, cfg.act_window_size, cfg.action_dim)
+    draws = {
+        "sigma": draw_sigma(cfg.sigma_sample_density_type, batch_size, generator),
+        "noise": torch.randn(shape, generator=generator, device=dev),
         "mask": torch.rand((batch_size, n_patches), generator=generator, device=dev),
         "dropout": generator,
     }
+    if cfg.goal_drop > 0:
+        draws["goal_mask"] = torch.rand(
+            (batch_size, 2, cfg.goal_seq_len, cfg.goal_dim), generator=generator,
+            device=dev) < cfg.goal_drop
+    n = n_step_draws(cfg.sampler_type, sampling_schedule(cfg)) if steps else 0
+    if n:
+        draws["step_noise"] = torch.randn((batch_size, n) + shape[1:],
+                                          generator=generator, device=dev)
+    return draws
 
 
 def rank_draws(cfg: MDTVConfig, batch_sizes: Mapping[str, int],
@@ -388,7 +421,7 @@ def init_random_(net: nn.Module, generator: torch.Generator) -> nn.Module:
         if leaf == "bias":
             p.zero_()
             continue
-        if isinstance(owner, (nn.LayerNorm, nn.GroupNorm, RMSNorm)):
+        if isinstance(owner, (nn.LayerNorm, nn.GroupNorm, RMSNorm, FrozenBatchNorm2d)):
             p.fill_(1.0)
             continue
         if isinstance(owner, LayerScale):
@@ -412,34 +445,70 @@ def init_random_(net: nn.Module, generator: torch.Generator) -> nn.Module:
     return net
 
 
+def sampling_schedule(cfg) -> np.ndarray:
+    """The config's host float32 sigma schedule (num_sampling_steps + 1 values)."""
+    return get_noise_schedule(cfg.num_sampling_steps, cfg.noise_scheduler,
+                              cfg.sigma_min, cfg.sigma_max)
+
+
+def hoists_context(cfg) -> bool:
+    """Whether a replan encodes its context once: under AdaLN without the
+    noise encoder the encoder never sees sigma (JAX `hoist_context`,
+    mdtv_agent.py:525); the other configs re-encode at every denoiser call,
+    as JAX does."""
+    return cfg.use_ada_conditioning and not cfg.use_noise_encoder
+
+
+def step_draws(cfg, batch: int, generator: torch.Generator) -> Optional[torch.Tensor]:
+    """The config's sampler's per-step N(0, 1) draws for a (batch, W, A)
+    chunk, (n, batch, W, A), from `generator`; None for a deterministic
+    sampler."""
+    n = n_step_draws(cfg.sampler_type, sampling_schedule(cfg))
+    if not n:
+        return None
+    return torch.randn((n, batch, cfg.act_window_size, cfg.action_dim),
+                       generator=generator, device=generator.device)
+
+
 @torch.no_grad()
 def denoise_actions(net: nn.Module, perceptual_emb: Dict[str, torch.Tensor],
                     latent_goal: torch.Tensor, *,
                     generator: Optional[torch.Generator] = None,
                     noise: Optional[torch.Tensor] = None,
-                    modality: str = "lang", return_context: bool = False):
+                    step_noise: Optional[torch.Tensor] = None,
+                    modality: str = "lang", return_context: bool = False,
+                    stats: Optional[dict] = None):
     """Sample a (B, act_window_size, action_dim) action chunk with the
     config's sampler, schedule and number of steps, through the net's
     `encode_context` and `decode_actions` (an `MDTVAgentNet` or an
     `MDTAgentNet`; `perceptual_emb` is what its `perceive` returns).
 
-    The encoder runs once: under AdaLN conditioning it never sees sigma, so
-    the context is computed before the sampling loop. The initial state is
-    x = N(0, 1) * sigma_max, with the N(0, 1) draw taken from `generator`
-    (on the goal's device) or passed in as `noise`. `return_context` also
-    returns that context (the validation step feeds it to the foresight
-    decoder)."""
+    Under AdaLN without the noise encoder the encoder never sees sigma, so
+    the context is computed once, before the sampling loop; the other
+    configs encode at every denoiser call, at that call's sigma, as JAX
+    does. The initial state is x = N(0, 1) * sigma_max, with the N(0, 1)
+    draw taken from `generator` (on the goal's device) or passed in as
+    `noise`; a stochastic sampler's per-step draws come likewise, after it,
+    or as `step_noise` (n, B, W, A) (`samplers.n_step_draws`).
+    `return_context` also returns the context (at sigma_max where the
+    encoder sees sigma; the validation step feeds it to the foresight
+    decoder). `stats` receives dpm_adaptive's step counts."""
     cfg = net.cfg
-    sigmas = get_noise_schedule(cfg.num_sampling_steps, cfg.noise_scheduler,
-                                cfg.sigma_min, cfg.sigma_max)
+    sigmas = sampling_schedule(cfg)
     if latent_goal.ndim == 2:
         latent_goal = latent_goal[:, None, :]
     B = latent_goal.shape[0]
-    context = net.encode_context(perceptual_emb, latent_goal, modality=modality)
+    hoist = hoists_context(cfg)
+    full = lambda value: torch.full((B,), float(value), dtype=torch.float32,
+                                    device=latent_goal.device)
+    context = net.encode_context(perceptual_emb, latent_goal, full(sigmas[0]),
+                                 modality=modality) if hoist or return_context else None
 
     def denoise_fn(x, sigma):
         sigma_b = torch.full((B,), float(sigma), dtype=x.dtype, device=x.device)
-        return precond_denoise(lambda xin, s: net.decode_actions(context, xin, s),
+        ctx = context if hoist else net.encode_context(perceptual_emb, latent_goal,
+                                                       sigma_b, modality=modality)
+        return precond_denoise(lambda xin, s: net.decode_actions(ctx, xin, s),
                                x, sigma_b, cfg.sigma_data)
 
     shape = (B, cfg.act_window_size, cfg.action_dim)
@@ -449,8 +518,18 @@ def denoise_actions(net: nn.Module, perceptual_emb: Dict[str, torch.Tensor],
         noise = torch.randn(shape, generator=generator, device=latent_goal.device)
     elif tuple(noise.shape) != shape:
         raise ValueError(f"noise must be {shape}, got {tuple(noise.shape)}")
+    n = n_step_draws(cfg.sampler_type, sigmas)
+    if n and step_noise is None:
+        if generator is None:
+            raise ValueError(f"the {cfg.sampler_type} sampler needs a generator or "
+                             "its step_noise")
+        step_noise = step_draws(cfg, B, generator)
+    if n and tuple(step_noise.shape) != (n,) + shape:
+        raise ValueError(f"step_noise must be {(n,) + shape}, got "
+                         f"{tuple(step_noise.shape)}")
     x = noise.to(device=latent_goal.device, dtype=torch.float32) * cfg.sigma_max
-    actions = sample_loop(cfg.sampler_type, denoise_fn, x, sigmas)
+    actions = sample_loop(cfg.sampler_type, denoise_fn, x, sigmas,
+                          noise=step_noise if n else None, stats=stats)
     return (actions, context) if return_context else actions
 
 
@@ -567,24 +646,27 @@ def validation_step(net: nn.Module, batch: Mapping[str, Batch], *,
                     generator: Optional[torch.Generator] = None,
                     draws: Optional[Mapping[str, Mapping]] = None) -> Dict:
     """Validation metrics per scope (JAX validation_step, :581-624): the
-    config's sampler (DDIM-10) from the hoisted context, the action MSE
-    against the ground truth, and the foresight loss on that context. Uses
-    draws[scope]["noise"] (initial noise) and ["mask"]. A cache batch skips
-    the towers, as in `MDTVAgentNet.forward`."""
+    config's sampler (DDIM-10) through `denoise_actions`, the action MSE
+    against the ground truth, and the foresight loss on the context. Uses
+    draws[scope]["noise"] (initial noise), ["mask"] and, for a stochastic
+    sampler, ["step_noise"]. A cache batch skips the towers, as in
+    `MDTVAgentNet.forward`."""
     batch = _on_device(batch, net.device)
     scopes = sorted(batch)
     if draws is None:
         if generator is None:
             raise ValueError("validation_step needs a generator or the draws")
-        draws = {s: make_draws(net.cfg, batch[s]["actions"].shape[0], generator)
-                 for s in scopes}
+        draws = {s: make_draws(net.cfg, batch[s]["actions"].shape[0], generator,
+                               steps=True) for s in scopes}
     metrics: Dict = {}
     total = 0.0
     for scope in scopes:
         b, d = batch[scope], draws[scope]
         emb, _, goal = net.encode_towers(b, scope)
-        pred, context = denoise_actions(net, emb, goal, noise=d["noise"],
-                                        modality=scope, return_context=True)
+        steps = d.get("step_noise")
+        pred, context = denoise_actions(
+            net, emb, goal, noise=d["noise"], modality=scope, return_context=True,
+            step_noise=None if steps is None else steps.transpose(0, 1))
         pred_loss = ((pred - b["actions"].float()) ** 2).mean()
         goal_imgs = torch.stack([b["gen_static"], b["gen_gripper"]], dim=1)
         recon, mask, _, _ = net.gen_img(context, goal_imgs, d["mask"])
@@ -601,8 +683,8 @@ def reconstruction_forward(net: nn.Module, b: Batch, mask_noise: torch.Tensor, *
                            modality: str = "lang"):
     """Masked-foresight reconstruction of one scope for visualization (JAX
     `reconstruction_forward`, mdtv_agent.py:545-578): the context encoded
-    once (under AdaLN it does not see sigma, so JAX's sigma_max changes
-    nothing), then the foresight decoder with the uniform draw `mask_noise`
+    once at sigma_max (which only the sigma-token encoder reads), then the
+    foresight decoder with the uniform draw `mask_noise`
     (B, n_patches). The goal is the text tower's in the lang scope when the
     batch carries tokens, else the image goal, as in JAX; either net and
     cache batches. Returns (goal_imgs, recon, mask) for
@@ -617,7 +699,8 @@ def reconstruction_forward(net: nn.Module, b: Batch, mask_noise: torch.Tensor, *
         if modality == "lang" and "lang_tokens" in b else image_goal
     if goal.ndim == 2:
         goal = goal[:, None]
-    context = net.encode_context(emb, goal, modality=modality)
+    sigma = torch.full((goal.shape[0],), net.cfg.sigma_max, device=goal.device)
+    context = net.encode_context(emb, goal, sigma, modality=modality)
     goal_imgs = torch.stack([b["gen_static"], b["gen_gripper"]], dim=1)
     recon, mask, _, _ = net.gen_img(context, goal_imgs, mask_noise)
     return goal_imgs, recon, mask
@@ -644,13 +727,16 @@ class MDTVPolicy:
     replan as the replay of a `torch.cuda.CUDAGraph`, captured on first use
     for each (method, input shapes): the port's counterpart of `jax.jit`.
     The inputs are copied into the graph's static buffers; the initial
-    noise is drawn from `generator` outside the graph and passed in, so a
-    graph policy and an eager one give the same chunk from the same seed.
-    A graph reads the net's parameters where they were at capture: load
-    new weights into them in place (`load_state_dict`), or `release` the
-    graphs, or make a new policy. A capture that fails raises. The kernels'
-    launch counters count a captured kernel at each replay, where it runs,
-    and not at the capture, which runs none."""
+    noise and a stochastic sampler's per-step draws are drawn from
+    `generator` outside the graph and passed in, so a graph policy and an
+    eager one give the same chunk from the same seed. A graph reads the
+    net's parameters where they were at capture: load new weights into
+    them in place (`load_state_dict`), or `release` the graphs, or make a
+    new policy. A capture that fails raises. The kernels' launch counters
+    count a captured kernel at each replay, where it runs, and not at the
+    capture, which runs none. The dpm_adaptive sampler accepts or rejects
+    its steps on the host, which a graph cannot replay: its policy runs
+    eagerly (the default), and `cuda_graph=True` raises."""
 
     def __init__(self, net: nn.Module,
                  generator: Optional[torch.Generator] = None,
@@ -661,7 +747,13 @@ class MDTVPolicy:
                              f"act_window_size={self.cfg.act_window_size}")
         self.device = net.device
         on_cuda = self.device.type == "cuda"
-        self.cuda_graph = on_cuda if cuda_graph is None else cuda_graph
+        adaptive = self.cfg.sampler_type == "dpm_adaptive"
+        self.cuda_graph = (on_cuda and not adaptive) if cuda_graph is None else cuda_graph
+        if self.cuda_graph and adaptive:
+            raise ValueError("cuda_graph=True cannot serve the dpm_adaptive sampler: its "
+                             "step count depends on the data, decided on the host step "
+                             "by step, and a CUDA graph replays a fixed sequence of "
+                             "kernels; use cuda_graph=False")
         if self.cuda_graph and not on_cuda:
             raise ValueError(f"cuda_graph=True needs a net on a CUDA device, "
                              f"not {self.device}")
@@ -687,18 +779,27 @@ class MDTVPolicy:
         return torch.randn((batch, self.cfg.act_window_size, self.cfg.action_dim),
                            generator=self.generator, device=self.device)
 
-    def _predict_emb(self, rgb_static, rgb_gripper, latent_goal, noise):
+    def _draw_steps(self, batch: int) -> Tuple[torch.Tensor, ...]:
+        """The sampler's per-step N(0, 1) draws of the replan, after the
+        initial one: () for a deterministic sampler, else one (n, batch,
+        act_window_size, action_dim) tensor."""
+        steps = step_draws(self.cfg, batch, self.generator)
+        return () if steps is None else (steps,)
+
+    def _predict_emb(self, rgb_static, rgb_gripper, latent_goal, noise, *steps):
         """Replan from a goal embedding (JAX `_predict_emb_impl`): a stored
         language embedding or this policy's cached text-tower output."""
         emb = self.net.perceive(rgb_static, rgb_gripper)
-        return denoise_actions(self.net, emb, latent_goal, noise=noise, modality="lang")
+        return denoise_actions(self.net, emb, latent_goal, noise=noise,
+                               step_noise=steps[0] if steps else None, modality="lang")
 
-    def _predict_vis(self, rgb_static, rgb_gripper, goal_image, noise):
+    def _predict_vis(self, rgb_static, rgb_gripper, goal_image, noise, *steps):
         """Replan from a goal image (JAX `_predict_vis_impl`): the frozen
         CLIP vision tower embeds it, in the "vis" modality."""
         emb = self.net.perceive(rgb_static, rgb_gripper)
         latent_goal = self.net.encode_visual_goal(goal_image)
-        return denoise_actions(self.net, emb, latent_goal, noise=noise, modality="vis")
+        return denoise_actions(self.net, emb, latent_goal, noise=noise,
+                               step_noise=steps[0] if steps else None, modality="vis")
 
     WARMUP_CALLS = 2  # eager calls on a side stream before a capture
 
@@ -749,6 +850,7 @@ class MDTVPolicy:
         rgb_static = self._tensor(obs["rgb_static"], torch.float32)
         rgb_gripper = self._tensor(obs["rgb_gripper"], torch.float32)
         noise = self._draw_noise(rgb_static.shape[0])
+        steps = self._draw_steps(rgb_static.shape[0])
         if "lang_tokens" in goal:
             toks = goal["lang_tokens"]
             toks = toks.cpu().numpy() if torch.is_tensor(toks) else np.asarray(toks)
@@ -759,10 +861,11 @@ class MDTVPolicy:
         elif "rgb_static_goal" in goal:
             image = self._tensor(goal["rgb_static_goal"], torch.float32)
             return self._run(self._predict_vis, rgb_static, rgb_gripper,
-                             image[None] if image.ndim == 3 else image, noise)
+                             image[None] if image.ndim == 3 else image, noise, *steps)
         else:
             goal_emb = torch.atleast_2d(self._tensor(goal["lang"], torch.float32))
-        return self._run(self._predict_emb, rgb_static, rgb_gripper, goal_emb, noise)
+        return self._run(self._predict_emb, rgb_static, rgb_gripper, goal_emb, noise,
+                         *steps)
 
     @torch.no_grad()
     def step(self, obs: Dict, goal: Dict) -> torch.Tensor:

@@ -11,8 +11,9 @@
   (default `cuda`; the CPU only when named), with float32 matmuls and
   convolutions in full float32 (`utils.misc.full_f32`), not TF32;
 * restores the best checkpoint's EMA weights (`--no-ema`: the raw ones) and
-  applies the eval-time sampler overrides; a value the port lacks (a
-  sampler other than `ddim`) raises, also in a sweep;
+  applies the eval-time sampler overrides: `--sampler` and
+  `--sweep-sampler` take every name of the JAX package's suite
+  (`diffusion.samplers.SAMPLER_NAMES`);
 * evaluates every subtask with its validation annotation sentence, tokenized
   for the CLIP text tower or, with `--use-embeddings`, looked up in the
   dataset's `embeddings.npy`;
@@ -34,6 +35,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from .diffusion.samplers import SAMPLER_NAMES
 
 logger = logging.getLogger(__name__)
 
@@ -115,7 +118,7 @@ def main(argv=None):
     ap.add_argument("--dataset-path", default=None, help="CALVIN validation dir")
     ap.add_argument("--num-sequences", type=int, default=1000)
     ap.add_argument("--ep-len", type=int, default=360)
-    ap.add_argument("--sampler", default=None)
+    ap.add_argument("--sampler", default=None, choices=SAMPLER_NAMES)
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--sigma-min", type=float, default=None)
     ap.add_argument("--sigma-max", type=float, default=None)
@@ -139,7 +142,7 @@ def main(argv=None):
                     help="per-chain subtask/goal logging")
     # sweep mode (the reference's sweep.yaml surface: sampler x steps x
     # sigma_min grid, each combo a full benchmark)
-    ap.add_argument("--sweep-sampler", nargs="+", default=None)
+    ap.add_argument("--sweep-sampler", nargs="+", default=None, choices=SAMPLER_NAMES)
     ap.add_argument("--sweep-steps", nargs="+", type=int, default=None)
     ap.add_argument("--sweep-sigma-min", nargs="+", type=float, default=None)
     args = ap.parse_args(argv)
@@ -183,8 +186,9 @@ def main(argv=None):
 
 def _sweep(args):
     """Grid over sampler x steps x sigma_min, one benchmark per combo (the
-    reference's wandb sweep surface, sweep.yaml:9-22); writes
-    sweep_results.json under <train_folder>/evaluation."""
+    reference's wandb sweep surface, sweep.yaml:9-22): one row a
+    combination, written to sweep_results.json under
+    <train_folder>/evaluation after each."""
     import itertools
 
     from .evaluation import evaluate_policy

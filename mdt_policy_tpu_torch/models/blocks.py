@@ -13,9 +13,13 @@ Numerics kept from the JAX package:
   and the affine step in float32 and rounds once.
 * `modulate(x, shift, scale) = shift + x * scale` (not the DiT convention).
 
-The denoiser computes in float32 (the JAX default). Dropout (attention
-probabilities, residual, MLP) runs when a `torch.Generator` is passed, which
-the train step does; without one, as in the replan, it is off.
+The denoiser computes in float32 (the JAX default), or its block stacks in
+a compute dtype (`dtype`, bf16 for `denoiser_compute_dtype="bfloat16"`):
+the parameters stay float32, the GEMMs and the attention run in the dtype,
+and the float32 residual stream re-promotes at every residual add. Dropout
+(attention probabilities, residual, MLP) runs when a `torch.Generator` is
+passed, which the train step does; without one, as in the replan, it is
+off.
 """
 
 from __future__ import annotations
@@ -35,8 +39,8 @@ from ..ops.small_seq_mha import MAX_DIM, MAX_SEQ, small_seq_mha
 __all__ = [
     "dense", "mish", "LayerNorm", "TowerLayerNorm",
     "BiaslessLayerNorm", "RMSNorm", "SwishGLU", "Attention", "MLP", "Block",
-    "AdaLNZero", "modulate", "ConditionedBlock", "TransformerEncoder",
-    "TransformerFiLMDecoder", "MAPAttention", "MAPBlock",
+    "AdaLNZero", "modulate", "ConditionedBlock", "NoiseBlock", "TransformerEncoder",
+    "TransformerDecoder", "TransformerFiLMDecoder", "MAPAttention", "MAPBlock",
     "ClipStyleProjection", "SingleTokenProjection", "SinusoidalPosEmb",
     "SigmaEmbedding",
 ]
@@ -121,18 +125,28 @@ class SwishGLU(nn.Module):
         return projected * F.silu(gate)
 
 
+def _project(x: torch.Tensor, layer: nn.Linear,
+             dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """`layer(x)`, or computed in `dtype` when one is given."""
+    return layer(x) if dtype is None else dense(x, layer, dtype)
+
+
 class Attention(nn.Module):
     """Self (context None) or cross attention; q/k/v with bias, the output
     projection without (ref :66-158, bias=False). Dropout on the
     post-softmax probabilities (`attn_pdrop`) and on the output
     (`resid_pdrop`) when a generator is passed. Self-attention over at most
     `MAX_SEQ` tokens whose probabilities see no dropout runs kernel B2
-    (`ops/small_seq_mha.py`); everything else runs `sdpa`."""
+    (`ops/small_seq_mha.py`); everything else runs `sdpa`. `dtype` (None:
+    the parameters' float32) is the compute dtype: the projections take
+    their input and weights in it and the attention runs in it, while the
+    parameters stay float32, as flax `Dense(dtype=...)` in the JAX block."""
 
     def __init__(self, n_embd: int, n_head: int, *, causal: bool = False,
-                 attn_pdrop: float = 0.0, resid_pdrop: float = 0.0):
+                 attn_pdrop: float = 0.0, resid_pdrop: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.n_head, self.causal = n_head, causal
+        self.n_head, self.causal, self.dtype = n_head, causal, dtype
         self.attn_pdrop, self.resid_pdrop = attn_pdrop, resid_pdrop
         self.query = nn.Linear(n_embd, n_embd)
         self.key = nn.Linear(n_embd, n_embd)
@@ -143,8 +157,8 @@ class Attention(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, T, C = x.shape
         kv_src = x if context is None else context
-        q, k, v = (layer(src).reshape(B, -1, self.n_head, C // self.n_head)
-                   .transpose(1, 2)
+        q, k, v = (_project(src, layer, self.dtype)
+                   .reshape(B, -1, self.n_head, C // self.n_head).transpose(1, 2)
                    for src, layer in ((x, self.query), (kv_src, self.key),
                                       (kv_src, self.value)))
         if context is None and T <= MAX_SEQ and C // self.n_head <= MAX_DIM \
@@ -155,39 +169,52 @@ class Attention(nn.Module):
         else:
             y = sdpa(q, k, v, causal=self.causal, dropout_p=self.attn_pdrop,
                      generator=generator)
-        y = self.c_proj(y.transpose(1, 2).reshape(B, T, C))
+        y = _project(y.transpose(1, 2).reshape(B, T, C), self.c_proj, self.dtype)
         return dropout(y, self.resid_pdrop, generator)
 
 
 class MLP(nn.Module):
     """4x exact-GELU MLP without biases (ref :161-180), output dropout
-    `pdrop` when a generator is passed."""
+    `pdrop` when a generator is passed, GEMMs in `dtype` (see Attention)."""
 
-    def __init__(self, n_embd: int, pdrop: float = 0.0):
+    def __init__(self, n_embd: int, pdrop: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.pdrop = pdrop
+        self.pdrop, self.dtype = pdrop, dtype
         self.c_fc = nn.Linear(n_embd, 4 * n_embd, bias=False)
         self.c_proj = nn.Linear(4 * n_embd, n_embd, bias=False)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return dropout(self.c_proj(F.gelu(self.c_fc(x))), self.pdrop, generator)
+        h = F.gelu(_project(x, self.c_fc, self.dtype))
+        return dropout(_project(h, self.c_proj, self.dtype), self.pdrop, generator)
 
 
 class Block(nn.Module):
-    """Pre-LN self-attention block of the encoder (ref :183-214)."""
+    """Pre-LN block (ref :183-214): self-attention, causal or not, then,
+    with `use_cross_attention`, cross-attention to a context behind the
+    affine `ln3` (flax default, eps 1e-6), then the MLP. The encoder's
+    block is non-causal without cross-attention; `TransformerDecoder`'s is
+    causal with it. The residual stream stays float32 whatever `dtype`."""
 
     def __init__(self, n_embd: int, n_heads: int, attn_pdrop: float = 0.0,
-                 resid_pdrop: float = 0.0, mlp_pdrop: float = 0.0):
+                 resid_pdrop: float = 0.0, mlp_pdrop: float = 0.0, *,
+                 causal: bool = False, use_cross_attention: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        drops = dict(attn_pdrop=attn_pdrop, resid_pdrop=resid_pdrop, dtype=dtype)
         self.ln_1 = BiaslessLayerNorm(n_embd)
-        self.attn = Attention(n_embd, n_heads, attn_pdrop=attn_pdrop,
-                              resid_pdrop=resid_pdrop)
+        self.attn = Attention(n_embd, n_heads, causal=causal, **drops)
+        if use_cross_attention:
+            self.ln3 = LayerNorm(n_embd, eps=1e-6)
+            self.cross_att = Attention(n_embd, n_heads, causal=causal, **drops)
         self.ln_2 = BiaslessLayerNorm(n_embd)
-        self.mlp = MLP(n_embd, mlp_pdrop)
+        self.mlp = MLP(n_embd, mlp_pdrop, dtype)
 
-    def forward(self, x, generator=None):
+    def forward(self, x, context=None, generator=None):
         x = x + self.attn(self.ln_1(x), generator=generator)
+        if context is not None and hasattr(self, "cross_att"):
+            x = x + self.cross_att(self.ln3(x), context, generator)
         return x + self.mlp(self.ln_2(x), generator)
 
 
@@ -211,19 +238,21 @@ def modulate(x, shift, scale):
 
 class ConditionedBlock(nn.Module):
     """Decoder block: AdaLN-conditioned causal self-attention and MLP, plain
-    cross-attention to the encoder context (ref :266-309)."""
+    cross-attention to the encoder context (ref :266-309). The modulation
+    stays float32; `dtype` as in Block."""
 
     def __init__(self, n_embd: int, n_heads: int, attn_pdrop: float = 0.0,
-                 resid_pdrop: float = 0.0, mlp_pdrop: float = 0.0):
+                 resid_pdrop: float = 0.0, mlp_pdrop: float = 0.0, *,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        drops = dict(attn_pdrop=attn_pdrop, resid_pdrop=resid_pdrop)
+        drops = dict(attn_pdrop=attn_pdrop, resid_pdrop=resid_pdrop, dtype=dtype)
         self.ln_1 = BiaslessLayerNorm(n_embd)
         self.attn = Attention(n_embd, n_heads, causal=True, **drops)
         self.ln3 = LayerNorm(n_embd, eps=1e-6)
         # causal as in the JAX block: a (10, n_context) lower-triangular mask
         self.cross_att = Attention(n_embd, n_heads, causal=True, **drops)
         self.ln_2 = BiaslessLayerNorm(n_embd)
-        self.mlp = MLP(n_embd, mlp_pdrop)
+        self.mlp = MLP(n_embd, mlp_pdrop, dtype)
         self.adaLN_zero = AdaLNZero(n_embd, n_embd)
 
     def forward(self, x, c, context, generator=None):
@@ -236,33 +265,80 @@ class ConditionedBlock(nn.Module):
                                        generator)
 
 
+class NoiseBlock(nn.Module):
+    """Decoder block of the noise encoder (ref :311-341): the sigma token
+    `c` added to the normed input of the causal self-attention and of the
+    causal cross-attention; the MLP unconditioned. `dtype` as in Block."""
+
+    def __init__(self, n_embd: int, n_heads: int, attn_pdrop: float = 0.0,
+                 resid_pdrop: float = 0.0, mlp_pdrop: float = 0.0, *,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        drops = dict(attn_pdrop=attn_pdrop, resid_pdrop=resid_pdrop, dtype=dtype)
+        self.ln_1 = BiaslessLayerNorm(n_embd)
+        self.attn = Attention(n_embd, n_heads, causal=True, **drops)
+        self.ln3 = LayerNorm(n_embd, eps=1e-6)
+        self.cross_att = Attention(n_embd, n_heads, causal=True, **drops)
+        self.ln_2 = BiaslessLayerNorm(n_embd)
+        self.mlp = MLP(n_embd, mlp_pdrop, dtype)
+
+    def forward(self, x, c, context, generator=None):
+        x = x + self.attn(self.ln_1(x) + c, generator=generator)
+        x = x + self.cross_att(self.ln3(x) + c, context, generator)
+        return x + self.mlp(self.ln_2(x), generator)
+
+
 class TransformerEncoder(nn.Module):
     """Non-causal block stack + final biasless LN (ref :344-380)."""
 
     def __init__(self, embed_dim: int, n_heads: int, n_layers: int,
                  attn_pdrop: float = 0.0, resid_pdrop: float = 0.0,
-                 mlp_pdrop: float = 0.0):
+                 mlp_pdrop: float = 0.0, *, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.blocks = nn.ModuleList(
-            Block(embed_dim, n_heads, attn_pdrop, resid_pdrop, mlp_pdrop)
+            Block(embed_dim, n_heads, attn_pdrop, resid_pdrop, mlp_pdrop, dtype=dtype)
             for _ in range(n_layers))
         self.ln = BiaslessLayerNorm(embed_dim)
 
     def forward(self, x, generator=None):
         for block in self.blocks:
-            x = block(x, generator)
+            x = block(x, generator=generator)
+        return self.ln(x)
+
+
+class TransformerDecoder(nn.Module):
+    """Causal block stack with cross-attention to the context, no sigma
+    conditioning in the blocks (ref :467-505): the decoder of the
+    sigma-token configs, whose encoder sees sigma."""
+
+    def __init__(self, embed_dim: int, n_heads: int, n_layers: int,
+                 attn_pdrop: float = 0.0, resid_pdrop: float = 0.0,
+                 mlp_pdrop: float = 0.0, *, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            Block(embed_dim, n_heads, attn_pdrop, resid_pdrop, mlp_pdrop, causal=True,
+                  use_cross_attention=True, dtype=dtype)
+            for _ in range(n_layers))
+        self.ln = BiaslessLayerNorm(embed_dim)
+
+    def forward(self, x, context, generator=None):
+        for block in self.blocks:
+            x = block(x, context, generator)
         return self.ln(x)
 
 
 class TransformerFiLMDecoder(nn.Module):
-    """Causal AdaLN-conditioned decoder with cross-attention (ref :509-569)."""
+    """Causal sigma-conditioned decoder with cross-attention (ref
+    :509-569): AdaLN blocks, or `NoiseBlock`s with `use_noise_encoder`."""
 
     def __init__(self, embed_dim: int, n_heads: int, n_layers: int,
                  attn_pdrop: float = 0.0, resid_pdrop: float = 0.0,
-                 mlp_pdrop: float = 0.0):
+                 mlp_pdrop: float = 0.0, *, use_noise_encoder: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        block = NoiseBlock if use_noise_encoder else ConditionedBlock
         self.blocks = nn.ModuleList(
-            ConditionedBlock(embed_dim, n_heads, attn_pdrop, resid_pdrop, mlp_pdrop)
+            block(embed_dim, n_heads, attn_pdrop, resid_pdrop, mlp_pdrop, dtype=dtype)
             for _ in range(n_layers))
         self.ln = BiaslessLayerNorm(embed_dim)
 

@@ -8,25 +8,38 @@ and `ln_final` stay on B3.
 * `CLIPTextTower`: causal, pooled at the EOT token (the largest token id).
 * `CLIPVisionTower`: ViT over NHWC images, a bias-free conv patchifier, a
   class token, `ln_post` on the class token and `@ proj`.
+* `CLIPResNetTower`: CLIP's ModifiedResNet (RN50 family), the goal tower of
+  `clip_vision_family="resnet"`: a three-conv stem, anti-aliased
+  Bottlenecks with frozen BatchNorm, and attention pooling whose query is
+  the mean token alone. The JAX package leaves its convolutions to XLA and
+  its pooling attention to the `sdpa` einsum, so here they are cuDNN
+  convolutions and the plain `ops/attention.py::sdpa`, in the weights'
+  dtype.
 
 OpenAI's `state_dict` layout (`transformer.resblocks.{i}.attn.in_proj_weight`,
-`conv1.weight`, `class_embedding`, ...), the one `port_clip_text` and
-`port_clip_vision` (without the `visual.` prefix) of the JAX package read.
+`conv1.weight`, `class_embedding`, `layer1.0.downsample.0.weight`,
+`attnpool.q_proj.weight`, ...), the one `port_clip_text`, `port_clip_vision`
+and `port_clip_resnet` (without the `visual.` prefix) of the JAX package
+read.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.attention import sdpa
 from ..ops.attention_halfblock import attention_halfblock
 from ..ops.fused_qkv_attention import fused_qkv_attention
 from ..ops.mlp_halfblock import mlp_halfblock
 from .blocks import TowerLayerNorm
 
 __all__ = ["quick_gelu", "ResidualAttentionBlock", "CLIPTextTower",
-           "CLIPVisionTower"]
+           "CLIPVisionTower", "FrozenBatchNorm2d", "Bottleneck", "AttentionPool2d",
+           "CLIPResNetTower"]
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -140,3 +153,120 @@ class CLIPVisionTower(nn.Module):
         x = torch.cat([cls, x], dim=1) + self.positional_embedding[None]
         x = self.transformer(self.ln_pre(x), halfblocks)
         return self.ln_post(x[:, 0]) @ self.proj
+
+
+class FrozenBatchNorm2d(nn.Module):
+    """Inference BatchNorm over NCHW with fixed statistics (JAX
+    `_FrozenBatchNorm`, clip.py:262-284): the scale and shift are formed in
+    the parameters' dtype, then cast to the input's. `weight`, `bias`,
+    `running_mean` and `running_var` as torch's BatchNorm2d names them."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        root = torch.sqrt(self.running_var + self.eps)
+        inv = (self.weight / root).to(x.dtype)
+        shift = (self.bias - self.running_mean * self.weight / root).to(x.dtype)
+        return x * inv[:, None, None] + shift[:, None, None]
+
+
+def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
+
+
+class Bottleneck(nn.Module):
+    """CLIP's anti-aliased Bottleneck (reference clip.py:43-91; JAX
+    `_Bottleneck`, :287-315): every conv at stride 1; with stride > 1 an
+    average pool after conv2 and at the head of the downsample branch."""
+
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+        super().__init__()
+        out = planes * self.expansion
+        self.stride = stride
+        self.conv1, self.bn1 = _conv(inplanes, planes, 1), FrozenBatchNorm2d(planes)
+        self.conv2, self.bn2 = _conv(planes, planes, 3), FrozenBatchNorm2d(planes)
+        self.conv3, self.bn3 = _conv(planes, out, 1), FrozenBatchNorm2d(out)
+        self.downsample = None
+        if stride > 1 or inplanes != out:
+            self.downsample = nn.Sequential(collections.OrderedDict([
+                ("-1", nn.AvgPool2d(stride)), ("0", _conv(inplanes, out, 1)),
+                ("1", FrozenBatchNorm2d(out))]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.relu(self.bn1(self.conv1(x)))
+        h = F.relu(self.bn2(self.conv2(h)))
+        if self.stride > 1:
+            h = F.avg_pool2d(h, self.stride)
+        h = self.bn3(self.conv3(h))
+        return F.relu(h + (x if self.downsample is None else self.downsample(x)))
+
+
+class AttentionPool2d(nn.Module):
+    """CLIP's QKV attention pool (reference clip.py:93-130; JAX :318-350):
+    tokens [mean; grid] plus learned positions, multi-head attention, the
+    attended mean token out through `c_proj`. As in JAX, only the mean
+    token's query is formed: the other rows are never read."""
+
+    def __init__(self, spacial_dim: int, embed_dim: int, num_heads: int,
+                 output_dim: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.positional_embedding = nn.Parameter(torch.zeros(spacial_dim ** 2 + 1, embed_dim))
+        self.k_proj = nn.Linear(embed_dim, embed_dim)
+        self.q_proj = nn.Linear(embed_dim, embed_dim)
+        self.v_proj = nn.Linear(embed_dim, embed_dim)
+        self.c_proj = nn.Linear(embed_dim, output_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C = x.shape[:2]
+        tokens = x.flatten(2).transpose(1, 2)  # (B, HW, C), row-major over (H, W)
+        tokens = torch.cat([tokens.mean(dim=1, keepdim=True), tokens], dim=1)
+        tokens = tokens + self.positional_embedding[None].to(tokens.dtype)
+        heads = lambda t: t.reshape(B, -1, self.num_heads, C // self.num_heads)
+        out = sdpa(heads(self.q_proj(tokens[:, :1])), heads(self.k_proj(tokens)),
+                   heads(self.v_proj(tokens)), layout="bthd")
+        return self.c_proj(out.reshape(B, C))
+
+
+class CLIPResNetTower(nn.Module):
+    """images (B, H, W, 3), CLIP-normalized -> (B, embed_dim), in the
+    weights' dtype (JAX `CLIPResNetTower`, clip.py:353-381): CLIP's
+    ModifiedResNet, NCHW inside. Heads: width * 32 // 64. The towers'
+    `halfblocks` flag does not apply to a conv net and is ignored."""
+
+    def __init__(self, embed_dim: int = 1024, layers=(3, 4, 6, 3), width: int = 64,
+                 image_resolution: int = 224):
+        super().__init__()
+        half = width // 2
+        self.conv1, self.bn1 = _conv(3, half, 3, stride=2), FrozenBatchNorm2d(half)
+        self.conv2, self.bn2 = _conv(half, half, 3), FrozenBatchNorm2d(half)
+        self.conv3, self.bn3 = _conv(half, width, 3), FrozenBatchNorm2d(width)
+        inplanes = width
+        for stage, blocks in enumerate(layers):
+            planes = width * 2 ** stage
+            stack = []
+            for b in range(blocks):
+                stack.append(Bottleneck(inplanes, planes, 2 if (b == 0 and stage > 0) else 1))
+                inplanes = planes * Bottleneck.expansion
+            setattr(self, f"layer{stage + 1}", nn.Sequential(*stack))
+        self.n_stages = len(layers)
+        self.attnpool = AttentionPool2d(image_resolution // 32, width * 32,
+                                        width * 32 // 64, embed_dim)
+
+    def forward(self, images: torch.Tensor, halfblocks: bool = False) -> torch.Tensor:
+        x = images.permute(0, 3, 1, 2)
+        for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2),
+                         (self.conv3, self.bn3)):
+            x = F.relu(bn(conv(x)))
+        x = F.avg_pool2d(x, 2)
+        for stage in range(self.n_stages):
+            x = getattr(self, f"layer{stage + 1}")(x)
+        return self.attnpool(x)

@@ -10,8 +10,11 @@ function:
     perceiver_from_jax        <-> port_perceiver
     clip_text_from_jax        <-> port_clip_text
     clip_vision_from_jax      <-> port_clip_vision (keys without `visual.`)
-    mdtv_transformer_from_jax <-> port_mdtv_transformer
-    mdt_transformer_from_jax  <-> port_mdt_transformer
+    clip_resnet_from_jax      <-> port_clip_resnet (keys without `visual.`)
+    mdtv_transformer_from_jax <-> port_mdtv_transformer (also the trees of the
+                                  sigma-token, noise-encoder, linear-goal and
+                                  no-`lang_emb` configs)
+    mdt_transformer_from_jax  <-> port_mdt_transformer (the same configs)
     resnet18_gn_from_jax      <-> port_resnet18_gn (prefixes `backbone`,
                                   `fc_layers.0`)
     masked_decoder_from_jax   <-> port_masked_decoder
@@ -29,7 +32,8 @@ Conventions: a flax Dense kernel (in, out) is a torch Linear weight
 (out, in); a flax Conv kernel (H, W, I, O) is a torch Conv2d weight
 (O, I, H, W); flax LayerNorm scale/bias are weight/bias; a biasless
 LayerNorm nests its params under `LayerNorm_0`; flax GroupNorm scale/bias
-are weight/bias.
+are weight/bias; the frozen BatchNorm's scale/bias/mean/var are
+weight/bias/running_mean/running_var.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ import numpy as np
 import torch
 
 __all__ = ["from_jax", "state_from_jax", "voltron_vit_from_jax", "perceiver_from_jax",
-           "clip_text_from_jax", "clip_vision_from_jax",
+           "clip_text_from_jax", "clip_vision_from_jax", "clip_resnet_from_jax",
            "mdtv_transformer_from_jax", "mdt_transformer_from_jax",
            "resnet18_gn_from_jax", "masked_decoder_from_jax",
            "clip_proj_from_jax"]
@@ -160,6 +164,37 @@ def clip_vision_from_jax(params: Mapping) -> StateDict:
     return sd
 
 
+def clip_resnet_from_jax(params: Mapping) -> StateDict:
+    """CLIP's ModifiedResNet: the stem `conv1-3`/`bn1-3`, the Bottlenecks
+    `layer{s}.{b}` (the downsample Sequential's conv `0` and norm `1`) and
+    `attnpool`."""
+    sd: StateDict = {}
+
+    def bn(prefix, p):
+        for name, key in (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"),
+                          ("var", "running_var")):
+            sd[f"{prefix}.{key}"] = _t(p[name])
+
+    for i in (1, 2, 3):
+        _conv(sd, f"conv{i}", params[f"conv{i}"])
+        bn(f"bn{i}", params[f"bn{i}"])
+    stages = sorted({k.split("_")[0] for k in params if k.startswith("layer")})
+    for stage in stages:
+        for b in range(_n_numbered(params, f"{stage}_")):
+            p, pre = params[f"{stage}_{b}"], f"{stage}.{b}"
+            for i in (1, 2, 3):
+                _conv(sd, f"{pre}.conv{i}", p[f"conv{i}"])
+                bn(f"{pre}.bn{i}", p[f"bn{i}"])
+            if "downsample_conv" in p:
+                _conv(sd, f"{pre}.downsample.0", p["downsample_conv"])
+                bn(f"{pre}.downsample.1", p["downsample_norm"])
+    ap = params["attnpool"]
+    sd["attnpool.positional_embedding"] = _t(ap["positional_embedding"])
+    for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        _dense(sd, f"attnpool.{name}", ap[name])
+    return sd
+
+
 def clip_proj_from_jax(params: Mapping) -> StateDict:
     """ClipStyleProjection, map style: the MAPBlock under `latent_proj`."""
     p, pre = params["latent_proj"], "latent_proj"
@@ -175,6 +210,9 @@ def clip_proj_from_jax(params: Mapping) -> StateDict:
 
 
 def _goal_embed(sd: StateDict, prefix: str, p: Mapping) -> None:
+    if "linear" in p:  # use_mlp_goal=False: one Linear
+        _dense(sd, prefix, p["linear"])
+        return
     _dense(sd, f"{prefix}.0", p["fc1"])
     _dense(sd, f"{prefix}.2", p["fc2"])
 
@@ -185,14 +223,18 @@ def _attention(sd: StateDict, prefix: str, p: Mapping) -> None:
 
 
 def _block(sd: StateDict, prefix: str, p: Mapping) -> None:
+    """An encoder block, a decoder's AdaLN block, a noise block or a plain
+    causal decoder block: the cross-attention and the AdaLN modulation
+    where the tree has them."""
     _ln(sd, f"{prefix}.ln_1", p["ln_1"]["LayerNorm_0"])
     _attention(sd, f"{prefix}.attn", p["attn"])
     _ln(sd, f"{prefix}.ln_2", p["ln_2"]["LayerNorm_0"])
     _dense(sd, f"{prefix}.mlp.c_fc", p["mlp"]["c_fc"])
     _dense(sd, f"{prefix}.mlp.c_proj", p["mlp"]["c_proj"])
-    if "adaLN_zero" in p:  # decoder block: AdaLN and cross-attention
+    if "cross_att" in p:
         _ln(sd, f"{prefix}.ln3", p["ln3"])
         _attention(sd, f"{prefix}.cross_att", p["cross_att"])
+    if "adaLN_zero" in p:
         _dense(sd, f"{prefix}.adaLN_zero.modulation.1",
                p["adaLN_zero"]["modulation"])
 
@@ -201,7 +243,8 @@ def mdtv_transformer_from_jax(params: Mapping) -> StateDict:
     sd: StateDict = {"pos_emb": _t(params["pos_emb"])}
     _dense(sd, "tok_emb", params["tok_emb"])
     _goal_embed(sd, "goal_emb", params["goal_emb"])
-    _goal_embed(sd, "lang_emb", params["lang_emb"])
+    if "lang_emb" in params:  # use_modality_encoder
+        _goal_embed(sd, "lang_emb", params["lang_emb"])
     if "proprio_emb" in params:
         _dense(sd, "proprio_emb.0", params["proprio_emb"]["fc1"])
         _dense(sd, "proprio_emb.2", params["proprio_emb"]["fc2"])
@@ -256,7 +299,8 @@ _PARTS = {
     "perceiver": perceiver_from_jax,
     "static_resnet": resnet18_gn_from_jax,
     "gripper_resnet": resnet18_gn_from_jax,
-    "visual_goal": clip_vision_from_jax,
+    "visual_goal": lambda p: (clip_resnet_from_jax if "attnpool" in p
+                              else clip_vision_from_jax)(p),
     "language_goal": clip_text_from_jax,
     "inner": _transformer_from_jax,
     "gen_img": masked_decoder_from_jax,

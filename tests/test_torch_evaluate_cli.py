@@ -182,21 +182,27 @@ def test_main_fake_env_writes_the_oracles_results(runs, family, capsys):
 
 
 def test_cli_refuses_what_the_port_lacks(runs, tmp_path):
-    """A sampler other than ddim (also in a sweep) raises; the default
-    device is CUDA, which raises where there is none. `--num-videos`, no
-    longer refused, writes the first chain's GIF under
+    """What the CLI once refused runs now: a sweep over two samplers
+    (ddim and the stochastic euler_ancestral) on the CPU writes one row a
+    combination; an unknown sampler name is refused by argparse. The
+    default device is CUDA, which raises where there is none.
+    `--num-videos` writes the first chain's GIF under
     <train_folder>/evaluation/videos."""
     port_dir = str(runs["mdtv"][1])
-    base = ["--train-folder", port_dir, "--fake-env", "--device", "cpu"]
     copy = shutil.copytree(port_dir, tmp_path / "run")  # its results.json is its own
     evaluate.main(["--train-folder", str(copy), "--fake-env", "--device", "cpu",
                    "--num-videos", "1", "--num-sequences", "1", "--ep-len", "3"])
     assert (copy / "evaluation" / "videos" / "lh-sequence_0.gif").stat().st_size > 0
-    with pytest.raises(NotImplementedError, match="sampler_type"):
-        evaluate.main([*base, "--sampler", "heun"])
-    with pytest.raises(NotImplementedError, match="sampler_type"):
-        evaluate.main([*base, "--sweep-sampler", "ddim", "heun", "--num-sequences", "1",
-                       "--ep-len", "1"])
+    evaluate.main(["--train-folder", str(copy), "--fake-env", "--device", "cpu",
+                   "--sweep-sampler", "ddim", "euler_ancestral", "--sweep-steps", "3", "5",
+                   "--num-sequences", "1", "--ep-len", "2"])
+    rows = json.loads((copy / "evaluation" / "sweep_results.json").read_text())
+    assert [(r["sampler"], r["steps"]) for r in rows] == [
+        ("ddim", 3), ("ddim", 5), ("euler_ancestral", 3), ("euler_ancestral", 5)]
+    assert all(r["avg_seq_len"] == 0.0 for r in rows)  # the oracle never solves
+    with pytest.raises(SystemExit):
+        evaluate.main(["--train-folder", port_dir, "--fake-env", "--device", "cpu",
+                       "--sampler", "nope"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             evaluate.main(["--train-folder", port_dir, "--fake-env"])

@@ -102,13 +102,7 @@ MDT_KW = dict(obs_dim=C, goal_dim=16, action_dim=7, embed_dim=C, n_enc_layers=2,
 
 @pytest.fixture(scope="module")
 def mdt_pair():
-    jm = JMDT(**MDT_KW, attn_pdrop=0.0, resid_pdrop=0.0, mlp_pdrop=0.0)
-    states = {"static": _x(B, 1, C), "gripper": _x(B, 1, C, seed=1)}
-    p = jinit(jm, states, _x(B, 10, 7), _x(B, 1, 16), np.ones(B, np.float32),
-              modality="lang")
-    pm = MDTTransformer(**MDT_KW)
-    pm.load_state_dict(from_jax.mdt_transformer_from_jax(p), strict=True)
-    return jm, p, pm.eval()
+    return _mdt_module()
 
 
 @pytest.mark.parametrize("modality,modality_embed", [("lang", False), ("vis", False),
@@ -213,8 +207,72 @@ def test_mdt_agent_builds_on_cuda_or_raises():
                                          ("use_ada_conditioning", False),
                                          ("use_mlp_goal", False), ("goal_drop", 0.1)])
 def test_mdt_unported_config_values_are_rejected(field, value):
-    with pytest.raises(NotImplementedError, match=field):
-        MDTAgentNet(MDTConfig(**{**TINY, field: value}), device="cpu")
+    """The MDT config values the port once refused: each builds now, and
+    what it changes matches the JAX package: Heun through the tiny MDT
+    denoiser (the `mdt_pair` weights, the same context) at the chunk bound;
+    the denoiser module with the value (its encode in train mode with the
+    same goal mask for goal_drop) at the module bound. The whole agent at
+    each value: tests/test_torch_mdt_denoiser_configs.py and
+    test_torch_mdt_denoiser_options.py."""
+    from mdt_policy_tpu.diffusion import precond as jprecond
+    from mdt_policy_tpu.diffusion import samplers as jsamplers
+    from mdt_policy_tpu_torch.diffusion import get_noise_schedule, precond, samplers
+    port = MDTAgentNet(MDTConfig(**{**TINY, field: value}), device="cpu")
+    assert getattr(port.cfg, field) == value
+    states = {"static": _x(B, 1, C, seed=3), "gripper": _x(B, 1, C, seed=4)}
+    goals = _x(B, 16, seed=5)
+    sigma = np.asarray([80.0, 1e-3], np.float32)
+    if field == "sampler_type":
+        jm, p, pm = _mdt_module()
+        jctx = jm.apply({"params": p}, states, goals, sigma, modality="lang", method="encode")
+        with torch.no_grad():
+            pctx = pm.encode({k: torch.from_numpy(v) for k, v in states.items()},
+                             torch.from_numpy(goals), modality="lang")
+
+        def jden(x, s):
+            inner = lambda xin, ss: jm.apply({"params": p}, jctx, xin, ss, method="decode")
+            return jprecond.precond_denoise(inner, x, jnp.full((B,), s), 0.5)
+
+        def pden(x, s):
+            inner = lambda xin, ss: pm.decode(pctx, xin, ss)
+            return precond.precond_denoise(inner, x, torch.full((B,), float(s)), 0.5)
+        sig = get_noise_schedule(10, "exponential", 0.001, 80.0)
+        x0 = _x(B, 10, 7, seed=6, scale=80.0)
+        ref = jsamplers.sample_loop(value, jden, jnp.asarray(x0), sig)
+        with torch.no_grad():
+            out = samplers.sample_loop(value, pden, torch.from_numpy(x0), sig)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **CHUNK_TOL)
+        return
+    jm, p, pm = _mdt_module(**({} if field == "goal_drop" else {field: value}),
+                            jax_kw={field: value})
+    mask = np.random.default_rng(7).uniform(size=(B, 1, 16)) < 0.1 \
+        if field == "goal_drop" else None
+    with mock.patch.object(jax.random, "bernoulli",
+                           lambda key, p, shape, *a, **k: jnp.asarray(mask)):
+        jctx = jm.apply({"params": p}, states, goals, sigma, modality="lang",
+                        train=mask is not None, method="encode",
+                        rngs={"goal_mask": jax.random.PRNGKey(1)})
+    jout = jm.apply({"params": p}, jctx, _x(B, 10, 7, seed=7), sigma, method="decode")
+    with torch.no_grad():
+        pctx = pm.encode({k: torch.from_numpy(v) for k, v in states.items()},
+                         torch.from_numpy(goals), torch.from_numpy(sigma), modality="lang",
+                         goal_mask=None if mask is None else torch.from_numpy(mask))
+        pout = pm.decode(pctx, torch.from_numpy(_x(B, 10, 7, seed=7)),
+                         torch.from_numpy(sigma))
+    np.testing.assert_allclose(pctx.numpy(), np.asarray(jctx), **TOL)
+    np.testing.assert_allclose(pout.numpy(), np.asarray(jout), **TOL)
+
+
+def _mdt_module(jax_kw=None, **port_kw):
+    """(JAX MDTTransformer, its perturbed parameters, the port's module with
+    them), dropout off, with extra keywords on either side."""
+    jm = JMDT(**MDT_KW, attn_pdrop=0.0, resid_pdrop=0.0, mlp_pdrop=0.0, **(jax_kw or {}))
+    states = {"static": _x(B, 1, C), "gripper": _x(B, 1, C, seed=1)}
+    p = jinit(jm, states, _x(B, 10, 7), _x(B, 1, 16), np.ones(B, np.float32),
+              modality="lang")
+    pm = MDTTransformer(**MDT_KW, **port_kw)
+    pm.load_state_dict(from_jax.mdt_transformer_from_jax(p), strict=True)
+    return jm, p, pm.eval()
 
 
 def _jax_noises(seed, n):

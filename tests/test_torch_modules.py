@@ -364,7 +364,25 @@ def test_ddim_matches_jax_and_ends_finite():
 
 
 def test_other_samplers_not_ported():
-    with pytest.raises(NotImplementedError, match="The rest, behind the production defaults"):
-        samplers.sample_loop("heun", None, torch.zeros(1, 10, 7), [1.0, 0.0])
+    """The samplers the port once refused run now: Heun, the first of
+    them, on the DDIM test's denoiser matches JAX at the toy bound of
+    tests/test_torch_samplers.py (which holds every sampler); an unknown
+    name still raises ValueError."""
+    sigmas = schedules.get_noise_schedule(10, "exponential", 0.001, 80.0)
+    x0 = _x(2, 10, 7, scale=80.0)
+    w = _x(7, 7, seed=1, scale=0.3)
+
+    def jden(x, sigma):
+        return jprecond.precond_denoise(lambda xin, s: jnp.tanh(xin @ w) * s[:, None, None],
+                                        x, jnp.broadcast_to(sigma, (2,)), 0.5)
+
+    def pden(x, sigma):
+        return precond.precond_denoise(
+            lambda xin, s_: torch.tanh(xin @ torch.from_numpy(w)) * s_[:, None, None],
+            x, torch.full((2,), float(sigma)), 0.5)
+    ref = np.asarray(jsamplers.sample_loop("heun", jden, jnp.asarray(x0), sigmas))
+    out = samplers.sample_loop("heun", pden, torch.from_numpy(x0), sigmas).numpy()
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-3)
     with pytest.raises(ValueError):
         samplers.sample_loop("nope", None, torch.zeros(1, 10, 7), [1.0, 0.0])

@@ -4,7 +4,8 @@ same names) against the JAX policy, for both agent families and both goal
 modalities, run eagerly on the CPU; the `cuda_graph` flag; the graph route's
 input and output handling and its launch counts with a stand-in for the
 captured graph; and, on the card, the captured replan against the eager
-one.
+one, for the production sampler and every other captured sampler, and
+dpm_adaptive's eager route.
 
 The JAX package is imported inside the parity tests, so that on a GPU
 machine without JAX the `cuda` tests of this file run alone:
@@ -21,6 +22,7 @@ import torch
 
 from mdt_policy_tpu_torch.agents import (MDTAgentNet, MDTConfig, MDTVAgentNet, MDTVConfig,
                                          MDTVPolicy, init_random_)
+from mdt_policy_tpu_torch.diffusion.samplers import SAMPLER_NAMES
 from mdt_policy_tpu_torch.models import blocks
 from mdt_policy_tpu_torch.ops import _build
 from mdt_policy_tpu_torch.ops.small_seq_mha import small_seq_mha, small_seq_mha_reference
@@ -203,6 +205,35 @@ def test_graph_route_feeds_new_inputs_and_returns_fresh_chunks(family):
     assert graph_launches == eager_launches > 0
 
 
+def test_graph_route_takes_a_stochastic_samplers_draws_as_inputs():
+    """A stochastic sampler's per-step draws are graph inputs, drawn from
+    the policy's generator outside the graph: with the capture stand-in,
+    each replan of euler_ancestral gives the eager chunk of its own draws
+    (a replay that kept the first draws would repeat its chunk)."""
+    import dataclasses
+    net = _port_net("mdtv", "cpu")
+    init_random_(net, torch.Generator().manual_seed(0))
+    net.cfg = dataclasses.replace(net.cfg, sampler_type="euler_ancestral")
+    graph = MDTVPolicy(net, generator=torch.Generator().manual_seed(3))
+    graph.cuda_graph = True
+
+    def capture(predict, inputs):
+        static = [t.clone() for t in inputs]
+        with _build.recording_launches() as launched:
+            out = predict(*static)
+        return _Recomputed(predict, static, out), static, out, launched
+    eager = MDTVPolicy(net, generator=torch.Generator().manual_seed(3))
+    obs, goal = _obs_goal(_inputs(B, 1), "lang")
+    with mock.patch.object(graph, "_capture", side_effect=capture) as captured:
+        chunks = [graph.plan(obs, goal) for _ in range(2)]
+    assert captured.call_count == 1
+    static = next(iter(graph._graphs.values()))[1]
+    assert len(static) == 5 and static[-1].shape == (10, B, 10, 7)
+    for chunk in chunks:
+        torch.testing.assert_close(chunk, eager.plan(obs, goal), rtol=0, atol=0)
+    assert not torch.equal(*chunks)
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -237,3 +268,40 @@ def test_cuda_graph_replan_matches_eager(cuda, family, batch):
             assert mine.shape == (batch, 10, 7) and torch.isfinite(mine).all()
             torch.testing.assert_close(mine, ref, rtol=0, atol=0)
         assert not torch.equal(*chunks[True])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", [s for s in SAMPLER_NAMES if s != "dpm_adaptive"])
+def test_cuda_graph_replan_matches_eager_every_sampler(cuda, sampler):
+    """Each captured sampler against its eager replan from the same seed
+    (the initial noise and the per-step draws made outside the graph), at
+    B=3 with a text goal, over two replans: bit for bit."""
+    import dataclasses
+    net = _port_net("mdtv", cuda)
+    init_random_(net, torch.Generator().manual_seed(0))
+    net.cfg = dataclasses.replace(net.cfg, sampler_type=sampler)
+    frames = [_obs_goal(_inputs(3, seed), "lang") for seed in (1, 2)]
+    chunks = {}
+    for graph in (True, False):
+        policy = MDTVPolicy(net, generator=torch.Generator(cuda).manual_seed(3),
+                            cuda_graph=graph)
+        chunks[graph] = [policy.plan(obs, goal) for obs, goal in frames]
+    for mine, ref in zip(chunks[True], chunks[False]):
+        assert torch.isfinite(mine).all()
+        torch.testing.assert_close(mine, ref, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_dpm_adaptive_runs_eager_and_refuses_a_graph(cuda):
+    """dpm_adaptive decides its steps on the host: on the card its policy
+    defaults to the eager route and `cuda_graph=True` raises."""
+    import dataclasses
+    net = _port_net("mdtv", cuda)
+    init_random_(net, torch.Generator().manual_seed(0))
+    net.cfg = dataclasses.replace(net.cfg, sampler_type="dpm_adaptive")
+    policy = MDTVPolicy(net, generator=torch.Generator(cuda).manual_seed(3))
+    assert policy.cuda_graph is False
+    obs, goal = _obs_goal(_inputs(2, 1), "lang")
+    assert torch.isfinite(policy.plan(obs, goal)).all()
+    with pytest.raises(ValueError, match="dpm_adaptive"):
+        MDTVPolicy(net, cuda_graph=True)

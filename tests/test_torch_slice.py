@@ -255,6 +255,53 @@ def test_port_imports_without_jax():
                 (path, roots)
 
 
+# the denoiser of TINY, dropout off (JAX MDTVTransformer keywords)
+INNER_KW = dict(obs_dim=32, goal_dim=16, embed_dim=32, n_enc_layers=1, n_dec_layers=1,
+                n_heads=2, attn_pdrop=0.0, resid_pdrop=0.0, mlp_pdrop=0.0)
+MODULE_TOL = dict(rtol=1e-4, atol=5e-5)  # tests/test_torch_modules.py
+BF16_INNER_ATOL = 2e-2  # two bf16 roundings (3.9e-3 each) of O(1) outputs, with margin
+
+
+def _inner_outputs(field, value, *, train_mask=None):
+    """(JAX, port) context and prediction of the tiny denoiser with
+    `field=value`, from the same parameters (carried by from_jax) and
+    inputs; with `train_mask`, JAX in train mode with that goal mask and
+    the port given it."""
+    from mdt_policy_tpu.models.mdtv_transformer import MDTVTransformer as JInner
+    from mdt_policy_tpu_torch.models.mdtv_transformer import MDTVTransformer as PInner
+    from mdt_policy_tpu_torch.utils.from_jax import mdtv_transformer_from_jax
+    bf16 = field == "denoiser_compute_dtype"
+    jkw = {"compute_dtype": jax.numpy.bfloat16} if bf16 else {field: value}
+    # the port's denoiser takes goal_drop's mask from its caller
+    pkw = {"compute_dtype": torch.bfloat16} if bf16 else \
+        {} if field == "goal_drop" else {field: value}
+    rng = np.random.default_rng(5)
+    states = {"state_images": rng.normal(size=(B, 3, 32)).astype(np.float32)}
+    goals = rng.normal(size=(B, 16)).astype(np.float32)
+    actions = rng.normal(size=(B, 10, 7)).astype(np.float32)
+    sigma = np.asarray([80.0, 1e-3], np.float32)
+    jm = JInner(**INNER_KW, **jkw)
+    params = jax.device_get(jm.init(jax.random.PRNGKey(0), states, actions, goals, sigma,
+                                    modality="lang")["params"])
+    pm = PInner(**INNER_KW, **pkw)
+    pm.load_state_dict(mdtv_transformer_from_jax(params), strict=True)
+    patch = mock.patch.object(jax.random, "bernoulli",
+                              lambda key, p, shape, *a, **k: jax.numpy.asarray(train_mask))
+    with patch:
+        jctx = jm.apply({"params": params}, states, goals, sigma, modality="lang",
+                        train=train_mask is not None, method="encode",
+                        rngs={"goal_mask": jax.random.PRNGKey(1)})
+    jout = jm.apply({"params": params}, jctx, actions, sigma, method="decode")
+    with torch.no_grad():
+        pctx = pm.encode({"state_images": torch.from_numpy(states["state_images"])},
+                         torch.from_numpy(goals), torch.from_numpy(sigma), modality="lang",
+                         goal_mask=None if train_mask is None
+                         else torch.from_numpy(train_mask))
+        pout = pm.decode(pctx, torch.from_numpy(actions), torch.from_numpy(sigma))
+    return (np.asarray(jctx, np.float32), np.asarray(jout, np.float32)), \
+        (pctx.float().numpy(), pout.float().numpy())
+
+
 @pytest.mark.parametrize("field,value", [
     ("sampler_type", "heun"), ("use_ada_conditioning", False),
     ("use_noise_encoder", True), ("use_mlp_goal", False),
@@ -263,5 +310,51 @@ def test_port_imports_without_jax():
     ("embed_pdrob", 0.1), ("goal_drop", 0.1),
 ])
 def test_unported_config_values_are_rejected(field, value):
-    with pytest.raises(NotImplementedError, match=field):
-        MDTVAgentNet(MDTVConfig(**{**TINY, field: value}), device="cpu")
+    """The config values the port once refused: each builds now, and the
+    part it changes matches the JAX package at that value (the denoiser
+    module, the sampler, the density or the goal tower). The whole agent
+    at each value: tests/test_torch_denoiser_configs.py,
+    test_torch_denoiser_options.py, test_torch_samplers.py and
+    test_torch_clip_resnet.py."""
+    over = {**TINY, "compute_dtype": "float32", field: value}
+    port = MDTVAgentNet(MDTVConfig(**over), device="cpu")
+    assert getattr(port.cfg, field) == value
+    if field == "sampler_type":
+        # the toy denoiser of tests/test_torch_samplers.py, at its bounds
+        from mdt_policy_tpu.diffusion import samplers as jsamplers
+        from mdt_policy_tpu_torch.diffusion import samplers
+        from test_torch_samplers import SIGMAS, TOY_TOL, _x0, jden, pden
+        ref = jsamplers.sample_loop(value, jden, jax.numpy.asarray(_x0()), SIGMAS)
+        out = samplers.sample_loop(value, pden, torch.from_numpy(_x0()), SIGMAS)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOY_TOL)
+    elif field == "sigma_sample_density_type":
+        from mdt_policy_tpu.diffusion import densities as jdensities
+        n = np.random.default_rng(2).normal(size=(16,)).astype(np.float32)
+        with mock.patch.object(jax.random, "normal", lambda *a, **k: jax.numpy.asarray(n)):
+            ref = jdensities.make_sample_density(value, 0.5, 0.001, 80.0)(
+                jax.random.PRNGKey(0), (16,))
+        np.testing.assert_allclose(port.sample_density(torch.from_numpy(n)).numpy(),
+                                   np.asarray(ref), rtol=1e-6)
+    elif field == "clip_vision_family":
+        # RN50's layout at this size: one Bottleneck a stage, width 8
+        over.update(clip_rn_layers=(1, 1, 1, 1), clip_rn_width=8)
+        port = MDTVAgentNet(MDTVConfig(**over), device="cpu")
+        from mdt_policy_tpu.agents.mdtv_agent import make_visual_goal_tower
+        jm = make_visual_goal_tower(JaxConfig(**over), False, False)
+        x = np.random.default_rng(3).normal(size=(B, 32, 32, 3)).astype(np.float32)
+        params = jax.device_get(jax.jit(jm.init)(jax.random.PRNGKey(0), x)["params"])
+        port.load_state_dict(from_jax({"visual_goal": params}), strict=False)
+        with torch.no_grad():
+            out = port.encode_visual_goal(torch.from_numpy(x)).numpy()
+        np.testing.assert_allclose(out, np.asarray(jax.jit(jm.apply)({"params": params}, x)),
+                                   **MODULE_TOL)
+    else:
+        mask = None
+        if field == "goal_drop":
+            mask = np.random.default_rng(4).uniform(size=(B, 1, 16)) < value
+        ref, out = _inner_outputs(field, value, train_mask=mask)
+        tol = dict(rtol=0, atol=BF16_INNER_ATOL) if field == "denoiser_compute_dtype" \
+            else MODULE_TOL
+        for r, o in zip(ref, out):
+            assert np.isfinite(o).all()
+            np.testing.assert_allclose(o, r, **tol)

@@ -123,7 +123,8 @@ def test_clip_style_projection():
 
 def test_loglogistic_density_from_the_same_draws():
     """MDT-V's density (loc log 0.5, scale 0.5, truncated to [1e-3, 80]),
-    from the same uniform draws, edges included."""
+    from the same uniform draws, edges included; and the log-normal
+    (tests/test_torch_samplers.py holds every density)."""
     u = np.concatenate([np.random.default_rng(5).uniform(size=64),
                         [0.0, 1e-7, 0.5, 1 - 1e-7]]).astype(np.float32)
     jfn = jdensities.make_sample_density("loglogistic", 0.5, 1e-3, 80.0)
@@ -134,8 +135,14 @@ def test_loglogistic_density_from_the_same_draws():
         torch.from_numpy(u)).numpy()
     assert np.isfinite(out).all() and out.min() >= 1e-3 * (1 - 1e-5)
     np.testing.assert_allclose(out, ref, **TOL)
-    with pytest.raises(NotImplementedError, match="lognormal"):
-        densities.make_sample_density("lognormal", 0.5, 1e-3, 80.0)
+    # the log-normal density, once refused, from the same normal draws
+    n = np.random.default_rng(6).normal(size=64).astype(np.float32)
+    with mock.patch.object(jax.random, "normal",
+                           lambda key, shape, *a, **k: jnp.asarray(n)):
+        ref = np.asarray(jdensities.make_sample_density("lognormal", 0.5, 1e-3, 80.0)(
+            jax.random.PRNGKey(0), n.shape))
+    out = densities.make_sample_density("lognormal", 0.5, 1e-3, 80.0)(torch.from_numpy(n))
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
 
 
 def test_tri_stage_schedule():

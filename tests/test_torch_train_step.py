@@ -284,6 +284,39 @@ def test_dropout_is_drawn_from_the_generator_in_train_mode_only():
             cfg, B, torch.Generator()).items() if k != "dropout"})
 
 
+def test_train_step_draws_do_not_depend_on_the_sampler():
+    """The sampler is an inference setting: with dropout on, the same
+    seed gives bit-equal train steps (metrics, updated parameters, EMA)
+    under DDIM and under euler_ancestral, a stochastic sampler. Only
+    validation's draws (`steps=True`) carry its per-step noise."""
+    cfg = dict(TINY, attn_pdrop=0.3, resid_pdrop=0.1, mlp_pdrop=0.05,
+               compute_dtype="float32")
+    init = MDTVAgentNet(MDTVConfig(**cfg), device="cpu")
+    init_random_(init, torch.Generator().manual_seed(0))
+    results = []
+    for sampler in ("ddim", "euler_ancestral"):
+        net = MDTVAgentNet(MDTVConfig(**cfg, sampler_type=sampler), device="cpu")
+        net.load_state_dict(init.state_dict())
+        state = init_train_state(net)
+        metrics = train_step(state, _batch(), generator=torch.Generator().manual_seed(5))
+        results.append((metrics, {k: p.detach().clone() for k, p in net.named_parameters()},
+                        {k: t.clone() for k, t in state.ema.items()}))
+        draws = make_draws(net.cfg, B, torch.Generator().manual_seed(1))
+        assert "step_noise" not in draws
+        assert ("step_noise" in make_draws(net.cfg, B, torch.Generator().manual_seed(1),
+                                           steps=True)) == (sampler != "ddim")
+    (m0, p0, e0), (m1, p1, e1) = results
+    assert sorted(m0) == sorted(m1)
+    for k in m0:
+        torch.testing.assert_close(torch.as_tensor(m0[k]), torch.as_tensor(m1[k]),
+                                   rtol=0, atol=0)
+    for k in p0:
+        torch.testing.assert_close(p0[k], p1[k], rtol=0, atol=0)
+    assert sorted(e0) == sorted(e1)
+    for k in e0:
+        torch.testing.assert_close(e0[k], e1[k], rtol=0, atol=0)
+
+
 def test_train_step_needs_draws_or_a_generator():
     _, _, port = _agents("f32")
     with pytest.raises(ValueError, match="generator"):
