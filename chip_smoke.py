@@ -14,8 +14,10 @@ both families' train states through `Checkpointer`, the evaluate CLI
 frozen-tower embedding extraction through `extract_embeddings` and
 `extract_lang_goals` over a synthetic split, and the cache-mode train step
 from the rows it wrote, `train()` and the extraction CLI over an on-disk
-split, `train()` with its training-time rollouts, rollout videos, and the
-train step in an NCCL process group. Prints one JSON line per phase:
+split, `train()` with its training-time rollouts, rollout videos, the
+train step in an NCCL process group, the language annotator CLI with both
+in-repo embedders, every other module of the JAX package, the loader
+benchmark and the steps' FLOPs. Prints one JSON line per phase:
 
   1. device   card name and power limit (nvidia-smi); TF32 off for f32
               matmuls and convolutions.
@@ -90,7 +92,7 @@ train step in an NCCL process group. Prints one JSON line per phase:
               step 60 B1, 157 B3 and 0 B2 launches (dropout is on).
  11. train_e2e  one step from the same state and draws through the kernels
               and through the plain versions: losses and grad_norm agree.
- 12. train_timing  step ms p50/p90 over 10 steps after 3 warm-up steps,
+ 12. train_timing  step ms p50/p90 over 6 steps after 3 warm-up steps,
               chunks/s, peak memory; then a profiled window of 2 steps.
  13. mdt_train, mdt_train_e2e, mdt_train_timing, mdt_validation  the same
               three for MDT (224 px static, 84 px gripper, 112 px
@@ -193,10 +195,35 @@ train step in an NCCL process group. Prints one JSON line per phase:
               trainables bit-identical after every step, the first step's
               losses within 1e-5 of one process's at the global batch;
               with one, `"ranks_2": "not run: 1 device"`.
+ 25. flops    (after each train timing) one train step of each family under
+              `FlopCounterMode`, B1's call sites tallying 4 B T^2 C a call
+              (asserted equal to `utils/flops.py`'s formula, which the
+              counter cannot see): the counter's FLOPs, B1's, their sum over
+              the timing's p50 step as TFLOP/s, `mfu` (the bf16 dense peak,
+              989 TFLOP/s) and the f32 peak's share (67; the steps are f32).
+ 26. annotator  (after video, on its split) `lang_annotator.main` with
+              `--scripted-oracle open_drawer --validation`, `--embedder clip`
+              (the random-init `MDTVConfig()` text tower, bf16) and
+              `minilm:<dir>` (seeded MiniLM-L3 weights, written as
+              `pytorch_model.bin` and as `model.safetensors`, bit-equal):
+              file shapes, finite values, B1 / B3 launches a sentence,
+              card vs plain route, sentences/s over the 389-sentence table.
+ 27. misc_modules  every module of the JAX package off the agents' paths
+              (rotary, xpos and masked attention; the block stacks at
+              MDT-V's denoiser width in f32 and bf16; the other six encoders
+              and decoders; every `ClipStyleProjection` style; position
+              biases; time embeddings; `VoltronMAPEncoder`,
+              `CLIPVisionTokens` and `VisionClipHead` of both families at 224
+              px, B=32, bf16 towers), each against its plain route.
+ 28. loader_bench  `data/bench_loader.py` at its CLI's defaults over a
+              1,000-frame synthetic split: frames path, shard scaling at 1,
+              2 and 4 processes, `DevicePrefetcher` over the loader (pinned
+              copies and `train_batch` on the card), embedding cache.
 
 Then the kernel summary line, and last `{"ok": true, "device": ...}`. The
 summary holds each kernel at its main shape, with its launches on every
-path; V1 (`attn_pair_grid`, main row Voltron bB=16) and V3 (`attn_pair_v3`,
+path (B2 is on no annotator path: MiniLM's masked attention runs `sdpa`);
+V1 (`attn_pair_grid`, main row Voltron bB=16) and V3 (`attn_pair_v3`,
 main row Voltron bB=16 +mxu_sum +exp2) belong to the `attn_variants` path,
 and the script fails if either was not launched there. Any failure raises
 and exits non-zero; without a CUDA device it exits 1.
@@ -320,8 +347,10 @@ E2E_REL_TOL = 2e-2
 # relative to max(1, |value|): the same bf16 one-ulp differences in the
 # frozen towers' outputs, averaged over 128 samples per scope.
 TRAIN_E2E_REL_TOL = 2e-2
-REPLANS_TIMED = 50  # per turn of the graph / eager timing (4 turns)
-REPLANS_AB = 15  # per turn of the B2 / sdpa A/B (4 turns)
+# per turn (4 turns) of the graph / eager timing and of the B2 / sdpa A/B, kept
+# small so that the whole script stays well inside its time limit
+REPLANS_TIMED = 30
+REPLANS_AB = 10
 REPLANS_TREE_AB = 100  # per tree of --replan-ab
 # host-clock calls of a wrapper, with no synchronise, for its host cost
 HOST_CALLS = 1000
@@ -369,7 +398,7 @@ SMALL_SEQ_F64_TOL = 1e-5
 ROLLOUT_CHAINS, ROLLOUT_EP_LEN, ROLLOUT_SOLVE_AT = 4, 360, 25
 BATCHED_ENVS = 32
 TRAIN_BATCH = 128  # per stream (configs/mdtv_calvin_d.yaml: batch_size)
-TRAIN_STEPS_TIMED = 10
+TRAIN_STEPS_TIMED = 6
 # Bound on the metrics of one more train step from a state and from its
 # restored copy, relative to max(1, |value|). The two states are bit-equal
 # and take the same draws, so the losses agree bit for bit; cuDNN's
@@ -457,7 +486,14 @@ def small_seq_inputs(torch, B, H, T, D, layout, dtype, gen, device):
     return one(), one(), one()
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's row also carries the script's elapsed
+    seconds, so that each phase's share of the run's time limit shows."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1334,7 +1370,7 @@ def phase_b2_ab(torch, net, device, smi):
 # log-likelihood's kernel-vs-plain bound relative to max(1, |ll|): both
 # routes run f32 with B2 and its plain version apart by summation order (~1e-6 relative a call), over an adaptive integration whose
 # accept decisions may differ near the threshold (rtol 1e-4)
-SAMPLER_REPLANS = 20
+SAMPLER_REPLANS = 10
 SAMPLER_BATCHES = (1, 32)
 LL_REL_TOL = 1e-3
 # configs: each value the port once refused, on the production width (the
@@ -1353,7 +1389,7 @@ CONFIG_CASES = (
     ("goal_drop", {"goal_drop": 0.1}),
 )
 MDT_CONFIG_CASES = ("sigma_token", "noise_encoder", "bf16_denoiser")
-CONFIG_REPLANS = 20  # per turn of the bf16 / f32 denoiser timing (4 turns)
+CONFIG_REPLANS = 10  # per turn of the bf16 / f32 denoiser timing (4 turns)
 TOWER_BATCHES = (1, TRAIN_BATCH)
 
 
@@ -2963,7 +2999,7 @@ TRAIN_ROLLOUT_EPOCHS = 2
 TASK_DEMO_TASKS = ("open_drawer", "turn_on_led", "push_red_block_left")
 TASK_SOLVE_AT, TASK_EP_LEN = 15, 60
 VIDEO_FRAMES, VIDEO_EP_LEN = 40, 30  # RolloutVideo alone; the evaluate CLI's episode
-DDP_TIMED_STEPS = 10  # a route of the ddp phase's step timing
+DDP_TIMED_STEPS = 5  # a route of the ddp phase's step timing
 DDP_CHILD_TIMEOUT_S = 600
 TWO_RANK_LOSS_REL_TOL = 1e-5
 
@@ -3445,6 +3481,357 @@ def phase_ddp(torch, device, smi, root):
     return next(r["launches"] for r in rows if "launches" in r)
 
 
+# --- the rest of the JAX package: annotator, misc modules, loader, FLOPs ---
+
+ANNOTATOR_TASK = "open_drawer"  # the scripted oracle's task (train table)
+ANNOTATOR_PLAIN = 16  # sentences of the table held against the plain route
+# |card - plain| / max(1, max |plain|): the CLIP text tower in bf16 (12
+# layers of B1 and B3 in bf16), MiniLM in f32 (B3 f32 only)
+ANNOTATOR_TOL = {"clip": 5e-2, "minilm": 1e-4}
+MINILM_VOCAB_PIECES = ["##s", "##ed", "##ing", "##er", "##ly"] + [
+    f"##{c}" for c in "abcdefghijklmnopqrstuvwxyz"]
+MISC_BATCH = 32
+MISC_WIDTH, MISC_HEADS, MISC_LAYERS, MISC_T, MISC_CTX = 384, 8, 4, 10, 4  # MDT-V's denoiser
+MISC_TOL = {"float32": 1e-4, "bfloat16": 6e-2}  # |card - plain| / max(1, max |plain|)
+# bench_loader's CLI defaults (batch 128, 50 batches) over 1,000 frames, not its
+# 2,000: writing 2,000 took the phase past a minute on a slow host
+LOADER_FRAMES, LOADER_BATCH, LOADER_STEPS = 1000, 128, 50
+LOADER_SHARDS, LOADER_SHARD_STEPS, PREFETCH_STEPS = (1, 2, 4), 20, 20
+
+
+def write_minilm_folder(torch, root, weights: str):
+    """A MiniLM-L3 folder as `minilm_embed_fn` reads it: config.json (HF
+    keys), vocab.txt (the special tokens, every word of both annotation
+    tables, `##` pieces, `[unusedN]` filler up to 30,522) and
+    `MINILM_L3_CONFIG` weights from a seeded generator in HF's key layout,
+    written as `pytorch_model.bin` (`weights` "bin") or
+    `model.safetensors` by the port's writer."""
+    import re
+
+    from mdt_policy_tpu_torch.agents import init_random_
+    from mdt_policy_tpu_torch.evaluation.annotations import (train_annotations,
+                                                             validation_annotations)
+    from mdt_policy_tpu_torch.models.minilm import MINILM_L3_CONFIG, MiniLMEncoder
+    from mdt_policy_tpu_torch.utils.safetensors_io import save_safetensors
+    c = MINILM_L3_CONFIG
+    os.makedirs(root)
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump({"vocab_size": c["vocab_size"], "hidden_size": c["hidden_size"],
+                   "num_hidden_layers": c["num_layers"], "num_attention_heads": c["num_heads"],
+                   "intermediate_size": c["intermediate_size"],
+                   "max_position_embeddings": c["max_position_embeddings"],
+                   "type_vocab_size": c["type_vocab_size"],
+                   "layer_norm_eps": c["layer_norm_eps"]}, f)
+    sentences = [s for table in (train_annotations(), validation_annotations())
+                 for v in table.values() for s in v]
+    words = sorted({w for s in sentences for w in re.findall(r"\w+|[^\w\s]", s.lower())})
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words + MINILM_VOCAB_PIECES
+    vocab += [f"[unused{i}]" for i in range(c["vocab_size"] - len(vocab))]
+    with open(os.path.join(root, "vocab.txt"), "w") as f:
+        f.write("\n".join(vocab) + "\n")
+    enc = init_random_(MiniLMEncoder(**c), torch.Generator().manual_seed(15))
+    sd = enc.state_dict()
+    if weights == "bin":
+        torch.save(sd, os.path.join(root, "pytorch_model.bin"))
+    else:
+        save_safetensors({k: v.numpy() for k, v in sd.items()},
+                         os.path.join(root, "model.safetensors"))
+    return root
+
+
+def phase_annotator(torch, device, launches: Launches, smi, split, root):
+    """`lang_annotator.main` over the split at CALVIN's frame sizes with
+    `--scripted-oracle ANNOTATOR_TASK --validation`, once with `--embedder
+    clip` (the random-init `MDTVConfig()` text tower, bf16, B1 and B3) and
+    once with `minilm:<dir>` (a seeded MiniLM-L3 folder, f32, B3): the
+    files' shapes ((N, 1, 512), (N, 1, 384); 34 goals) and finite values,
+    each sentence's launches (B1 12 and B3 25 a CLIP sentence, B3 7 a MiniLM
+    one), the file's rows equal to the embedder's, ANNOTATOR_PLAIN table
+    sentences on the card against the plain route, sentences/s over the
+    389-sentence table one sentence a call, as the CLI embeds; the MiniLM
+    folder written as `pytorch_model.bin` and as `model.safetensors`, the
+    two files' tensors and embeddings bit-equal."""
+    from pathlib import Path
+
+    from mdt_policy_tpu_torch.data import lang_annotator
+    from mdt_policy_tpu_torch.evaluation.annotations import train_annotations
+    from mdt_policy_tpu_torch.models.minilm import _load_state_dict
+    dirs = {w: write_minilm_folder(torch, os.path.join(root, f"minilm_{w}"), w)
+            for w in ("bin", "safetensors")}
+    a, b = (_load_state_dict(Path(d)) for d in dirs.values())
+    files_equal = a.keys() == b.keys() and all(
+        torch.equal(a[k], torch.from_numpy(b[k])) for k in a)
+    table = [s for v in train_annotations().values() for s in v]
+    per_sentence = {"clip": {"fused_qkv_attention": 12, "fused_layer_norm": 25},
+                    "minilm": {"fused_layer_norm": 7}}
+    built = {}
+    make = lang_annotator.make_embed_fn
+
+    def capture(spec, *args, **kwargs):
+        built[spec] = make(spec, *args, **kwargs)
+        return built[spec]
+
+    total = {k: 0 for k in launches.read()}
+    rows = []
+    for name, spec, width in (("clip", "clip", 512),
+                              ("minilm", f"minilm:{dirs['bin']}", 384)):
+        out = os.path.join(root, f"lang_{name}")
+        launches.reset()
+        t0 = time.perf_counter()
+        with mock.patch.object(lang_annotator, "make_embed_fn", capture):
+            lang_annotator.main(["--root", split, "--out", out, "--embedder", spec,
+                                 "--scripted-oracle", ANNOTATOR_TASK, "--validation",
+                                 "--device", str(device)])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        cli = launches.read()
+        ann = np.load(os.path.join(out, "auto_lang_ann.npy"), allow_pickle=True).item()
+        goals = np.load(os.path.join(out, "embeddings.npy"), allow_pickle=True).item()
+        emb, sentences = ann["language"]["emb"], ann["language"]["ann"]
+        n = len(sentences) + len(goals)
+        embed = built.pop(spec)
+        t0 = time.perf_counter()
+        for s in table:
+            embed(s)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        card = np.stack([embed(s) for s in table[:ANNOTATOR_PLAIN]])
+        rows_again = np.stack([embed(s) for s in sentences])
+        with plain_kernels():
+            plain = np.stack([embed(s) for s in table[:ANNOTATOR_PLAIN]])
+        timed = launches.read()
+        for k in total:
+            total[k] += timed[k]
+        expected = {k: per_sentence[name].get(k, 0) * n for k in ("fused_qkv_attention",
+                                                                 "fused_layer_norm",
+                                                                 "small_seq_mha")}
+        err = float(np.abs(card - plain).max())
+        row = {"phase": "annotator", "embedder": name, "windows": len(sentences),
+               "goals": len(goals), "emb_shape": list(emb.shape),
+               "finite": bool(np.isfinite(emb).all()
+                              and all(np.isfinite(g["emb"]).all() for g in goals.values())),
+               "cli_s": cli_s, "cli_launches": {k: cli[k] for k in expected},
+               "expected_cli_launches": expected,
+               "sentences_per_s": len(table) / seconds, "timed_sentences": len(table),
+               "max_abs_err": err, "tol": ANNOTATOR_TOL[name] * max(1.0, float(np.abs(plain).max())),
+               "file_rows_err": float(np.abs(rows_again - emb[:, 0]).max()), "card": smi}
+        if name == "minilm":
+            other = lang_annotator.make_embed_fn(f"minilm:{dirs['safetensors']}", device=device)
+            row["weight_files_bit_equal"] = files_equal and all(
+                np.array_equal(other(s), embed(s)) for s in table[:ANNOTATOR_PLAIN])
+        emit(row)
+        rows.append(row)
+        del embed
+        torch.cuda.empty_cache()
+        if not (row["finite"] and emb.shape == (len(sentences), 1, width) and sentences
+                and len(goals) == 34 and all(g["emb"].shape == (width,) for g in goals.values())
+                and row["cli_launches"] == expected and err <= row["tol"]
+                and row["file_rows_err"] <= row["tol"]
+                and row.get("weight_files_bit_equal", True)):
+            raise AssertionError(f"annotator ({name}) failed its checks: {row}")
+    return total
+
+
+def _misc_cases(torch, device):
+    """(name, dtype name, module, args, kwargs) of every module the JAX
+    package holds beyond the agents' paths, at MDT-V's denoiser width (and
+    the towers at 224 px, B=32, bf16), seeded random weights."""
+    from mdt_policy_tpu_torch.agents import init_random_
+    from mdt_policy_tpu_torch.models import blocks as pb
+    from mdt_policy_tpu_torch.models import encoders_misc as enc
+    from mdt_policy_tpu_torch.models import position_embeddings as pe
+    gen = torch.Generator().manual_seed(16)
+    D, H, L, T = MISC_WIDTH, MISC_HEADS, MISC_LAYERS, MISC_T
+
+    def build(module, tower_bf16=None):
+        module = init_random_(module, gen).to(device).eval()
+        if tower_bf16 is not None:
+            getattr(module, tower_bf16).to(torch.bfloat16)
+        return module
+
+    draw = lambda *shape: torch.randn(shape, generator=gen).to(device)
+    x, ctx, ctx_t, c = (draw(MISC_BATCH, T, D), draw(MISC_BATCH, MISC_CTX, D),
+                        draw(MISC_BATCH, T, D), draw(MISC_BATCH, 1, D))
+    mask = (torch.rand((T, T), generator=gen) > 0.3).fill_diagonal_(True).to(device)
+    conds = [draw(MISC_BATCH, MISC_CTX, D) for _ in range(L)]
+    cases = []
+    for dt in ("float32", "bfloat16"):
+        kw = {"dtype": getattr(torch, dt)}
+        cases += [
+            ("attention_rotary", dt, build(pb.Attention(D, H, use_rot_embed=True, **kw)),
+             (x,), {}),
+            ("attention_rotary_xpos_causal", dt, build(pb.Attention(
+                D, H, causal=True, use_rot_embed=True, rotary_xpos=True, **kw)), (x,), {}),
+            ("attention_rotary_xpos_masked", dt, build(pb.Attention(
+                D, H, use_rot_embed=True, rotary_xpos=True, **kw)), (x,),
+             {"custom_attn_mask": mask}),
+            ("encoder", dt, build(pb.TransformerEncoder(D, H, L, **kw)), (x,), {}),
+            ("encoder_masked", dt, build(pb.TransformerEncoder(D, H, L, bias=True, **kw)),
+             (x,), {"custom_attn_mask": mask}),
+            ("decoder", dt, build(pb.TransformerDecoder(D, H, L, **kw)), (x, ctx), {}),
+            ("film_decoder", dt, build(pb.TransformerFiLMDecoder(D, H, L, **kw)),
+             (x, c, ctx), {}),
+            ("noise_decoder", dt, build(pb.TransformerFiLMDecoder(
+                D, H, L, use_noise_encoder=True, **kw)), (x, c, ctx), {}),
+            ("film_decoder_masked", dt, build(pb.TransformerFiLMDecoder(D, H, L, **kw)),
+             (x, c, ctx_t), {"custom_attn_mask": mask})]
+    cases += [
+        ("encoder_interleaved", "float32", build(pb.TransformerEncoderInterleaved(D, H, L)),
+         (x,), {}),
+        ("film_encoder", "float32", build(pb.TransformerFiLMEncoder(D, H, L, D)), (x, c), {}),
+        ("cross_attention_encoder", "float32",
+         build(pb.TransformerCrossAttentionEncoder(D, H, L)), (x, ctx), {}),
+        ("cross_attention_only_encoder", "float32",
+         build(pb.TransformerCrossAttentionOnlyEncoder(D, H, L)), (x, ctx), {}),
+        ("siamnese_decoder", "float32", build(pb.SiamneseDecoder(D, H, L)), (x, ctx), {}),
+        ("film_decoder_interleaved", "float32",
+         build(pb.TransformerFiLMDecoderInterleaved(D, H, L, D)), (x, c, conds), {}),
+        ("noise_decoder_interleaved", "float32", build(pb.TransformerFiLMDecoderInterleaved(
+            D, H, L, D, use_noise_encoder=True)), (x, c, conds), {})]
+    cases += [(f"clip_proj_{style}", "float32",
+               build(pb.ClipStyleProjection(style, token_dim=D, num_token=MISC_CTX)), (ctx,), {})
+              for style in pb.CLIP_STYLES]
+    sigma = draw(MISC_BATCH).exp()
+    cases += [("relative_position_bias", "float32", build(pe.RelativePositionBias(heads=H)),
+               (T, T), {}),
+              ("dynamic_position_bias", "float32", build(pe.DynamicPositionBias(64, heads=H)),
+               (T, T), {}),
+              ("gaussian_fourier", "float32", build(enc.GaussianFourierEmbedding(D)), (sigma,), {}),
+              ("fourier_features", "float32", build(enc.FourierFeatures(D)), (sigma,), {}),
+              ("sinusoidal_time", "float32", build(enc.SinusoidalTimeEmbedding(D)), (sigma,), {})]
+    images = torch.randn((MISC_BATCH, 224, 224, 3), generator=gen).to(device, torch.bfloat16)
+    cases += [
+        ("voltron_map_encoder", "bfloat16", build(enc.VoltronMAPEncoder(), "vcond"),
+         (images,), {}),
+        ("clip_vision_tokens", "bfloat16", build(enc.CLIPVisionTokens()).to(torch.bfloat16),
+         (images,), {}),
+        ("vision_clip_head_vit", "bfloat16", build(enc.VisionClipHead(), "clip"), (images,), {}),
+        ("vision_clip_head_rn50", "bfloat16",
+         build(enc.VisionClipHead(clip_embed_dim=1024, family="resnet"), "clip"), (images,), {})]
+    return cases
+
+
+def phase_misc_modules(torch, device, launches: Launches, smi):
+    """Every module of the JAX package outside the agents' paths, once on
+    the card (`_misc_cases`): the rotary, xpos and masked attention, the
+    block stacks at MDT-V's denoiser width in f32 and bf16, the other six
+    encoders and decoders, every `ClipStyleProjection` style, the position
+    biases and time embeddings, and the perceptual encoders at 224 px,
+    B=32, bf16 towers; each against its plain route on the card (MISC_TOL
+    relative to max(1, max |plain|)), B1, B2 and B3 launches counted."""
+    from mdt_policy_tpu_torch.models import NoEncoder
+    rows = []
+    launches.reset()
+    for name, dt, module, args, kwargs in _misc_cases(torch, device):
+        with torch.no_grad():
+            before = launches.read()
+            out = module(*args, **kwargs)
+            torch.cuda.synchronize()
+            after = launches.read()
+            with plain_kernels():
+                ref = module(*args, **kwargs)
+        outs, refs = (o if isinstance(o, list) else [o] for o in (out, ref))
+        err = max(float((o.float() - r.float()).abs().max()) for o, r in zip(outs, refs))
+        scale = max(1.0, max(float(r.float().abs().max()) for r in refs))
+        rows.append({"module": name, "dtype": dt, "shape": list(outs[-1].shape),
+                     "max_abs_err": err, "tol": MISC_TOL[dt] * scale,
+                     "finite": all(bool(torch.isfinite(o).all()) for o in outs),
+                     "launches": {k: after[k] - before[k] for k in
+                                  ("fused_qkv_attention", "small_seq_mha", "fused_layer_norm",
+                                   "fused_rms_norm") if after[k] > before[k]}})
+        del module, out, ref
+    total = launches.read()
+    probe = torch.ones(1)
+    row = {"phase": "misc_modules", "modules": rows, "launches": total,
+           "no_encoder_identity": NoEncoder()(probe) is probe, "card": smi}
+    emit(row)
+    torch.cuda.empty_cache()
+    bad = [r for r in rows if not (r["finite"] and r["max_abs_err"] <= r["tol"])]
+    if bad or not row["no_encoder_identity"]:
+        raise AssertionError(f"misc_modules: modules off their plain route: {bad}")
+    return total
+
+
+def phase_loader_bench(torch, device, smi, root):
+    """`data/bench_loader.py` at its CLI's defaults (LOADER_FRAMES frames at
+    CALVIN's 200 / 84 px, batch 128, 50 batches): the frames path, the
+    shard scaling at LOADER_SHARDS shards (LOADER_SHARD_STEPS batches a
+    shard process, `CUDA_VISIBLE_DEVICES=""`), `DevicePrefetcher` over the
+    frames loader (pinned copies and `train_batch` on the card), and the
+    embedding-cache path over a production-shape fabricated cache; with
+    the seconds to write the split and the cache."""
+    from pathlib import Path
+
+    from mdt_policy_tpu_torch.data import bench_loader
+    from mdt_policy_tpu_torch.data.extract import extract_by_key, extract_frames
+    t0 = time.perf_counter()
+    split = bench_loader.generate_dataset(Path(root) / "training", LOADER_FRAMES)
+    extract_by_key(split)
+    extract_frames(split)
+    write_s = time.perf_counter() - t0
+    frames = bench_loader.bench(split, batch_size=LOADER_BATCH, steps=LOADER_STEPS)
+    scaling = [bench_loader.scaling_bench(split, n, batch_size=LOADER_BATCH,
+                                          steps=LOADER_SHARD_STEPS) for n in LOADER_SHARDS]
+    prefetch = bench_loader.bench_prefetcher(split, device=device, batch_size=LOADER_BATCH,
+                                             steps=PREFETCH_STEPS)
+    t0 = time.perf_counter()
+    bench_loader.fabricate_embedding_cache(split)
+    cache_s = time.perf_counter() - t0
+    cache = bench_loader.bench_embeddings(split, batch_size=LOADER_BATCH, steps=LOADER_STEPS)
+    row = {"phase": "loader_bench", "frames": LOADER_FRAMES, "write_split_s": write_s,
+           "frames_path": frames, "scaling": scaling, "prefetcher": prefetch,
+           "write_cache_s": cache_s, "embedding_cache": cache, "card": smi}
+    emit(row)
+    counts = [s["chunks"] for s in scaling]
+    if not (frames["extracted_frames"] and counts == [n * LOADER_SHARD_STEPS * LOADER_BATCH
+                                                      for n in LOADER_SHARDS]
+            and min(frames["chunks_per_sec"], prefetch["chunks_per_sec"],
+                    cache["chunks_per_sec"]) > 0):
+        raise AssertionError(f"loader_bench failed its checks: {row}")
+    return row
+
+
+def phase_flops(torch, state, batch, device, smi, family: str, timing):
+    """One train step under `FlopCounterMode` (the aten ops' FLOPs; B1's
+    launches dispatch none) with B1's call sites tallying 4 B T^2 C a call,
+    which must equal `utils/flops.py`'s formula; their sum over the timing
+    phase's p50 step time, as a share of the bf16 dense peak (989 TFLOP/s,
+    `mfu`) and of the f32 peak (67 TFLOP/s; the steps are f32)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from mdt_policy_tpu_torch.agents import train_step
+    from mdt_policy_tpu_torch.models import clip, voltron_vit
+    from mdt_policy_tpu_torch.ops.fused_qkv_attention import fused_qkv_attention
+    from mdt_policy_tpu_torch.utils import flops
+    tally = []
+
+    def counted(qkv, n_heads, causal=False):
+        tally.append(flops.attention_matmul_flops(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3))
+        return fused_qkv_attention(qkv, n_heads, causal)
+
+    gen = torch.Generator(device).manual_seed(10)
+    with mock.patch.object(clip, "fused_qkv_attention", counted), \
+            mock.patch.object(voltron_vit, "fused_qkv_attention", counted), \
+            FlopCounterMode(display=False) as counter:
+        train_step(state, batch, generator=gen)
+    torch.cuda.synchronize()
+    formula = (flops.tower_custom_call_flops if family == "mdtv"
+               else flops.mdt_tower_custom_call_flops)(state.net.cfg, TRAIN_BATCH, device)
+    counted_flops = counter.get_total_flops()
+    total = counted_flops + formula
+    step_s = timing["step_ms_p50"] / 1e3
+    row = {"phase": "flops", "family": family, "batch_per_stream": TRAIN_BATCH,
+           "flop_counter": counted_flops, "b1_flops": formula, "b1_tally": sum(tally),
+           "total_flops": total, "step_ms_p50": timing["step_ms_p50"],
+           "tflops_per_s": total / step_s / 1e12,
+           "mfu": total / step_s / PEAK_FLOPS["bfloat16"],
+           "f32_peak_share": total / step_s / PEAK_FLOPS["float32"], "card": smi}
+    emit(row)
+    if sum(tally) != formula or formula <= 0 or counted_flops <= 0:
+        raise AssertionError(f"flops: B1's tally is not the formula's: {row}")
+    return row
+
+
 def kernel_entry(name, source, replaces, launches, rows, main):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -3496,12 +3883,14 @@ def main() -> int:
     state, batch, paths["train"] = phase_train(torch, net, device, launches)
     phase_train_e2e(torch, state, batch, device, launches)
     bare = {"mdtv": phase_train_timing(torch, state, batch, device, smi)}
+    phase_flops(torch, state, batch, device, smi, "mdtv", bare["mdtv"])
     del batch
     torch.cuda.empty_cache()
     mdt_state, batch, paths["mdt_train"] = phase_train(torch, mdt, device, launches, "mdt")
     phase_train_e2e(torch, mdt_state, batch, device, launches, phase="mdt_train_e2e")
     bare["mdt"] = phase_train_timing(torch, mdt_state, batch, device, smi,
                                      phase="mdt_train_timing")
+    phase_flops(torch, mdt_state, batch, device, smi, "mdt", bare["mdt"])
     paths["mdt_validation"] = phase_validation(torch, mdt, batch, device, launches,
                                                "mdt_validation")
     del batch
@@ -3532,7 +3921,12 @@ def main() -> int:
         shutil.rmtree(run)  # its checkpoint: disk space
         paths["train_rollout"], run = phase_train_rollout(torch, device, launches, smi, root)
         paths["video"] = phase_video(torch, device, launches, smi, run)
+        paths["annotator"] = phase_annotator(torch, device, launches, smi,
+                                             os.path.join(root, "training"), root)
     torch.cuda.empty_cache()
+    paths["misc_modules"] = phase_misc_modules(torch, device, launches, smi)
+    with tempfile.TemporaryDirectory() as root:
+        phase_loader_bench(torch, device, smi, root)
     phase_tf32(torch, device, smi)
     with tempfile.TemporaryDirectory() as root:
         paths["ddp"] = phase_ddp(torch, device, smi, root)
@@ -3555,19 +3949,21 @@ def summary(rows, paths):
     for name, source, replaces, kind, shape, dtype, own in (
             ("fused_qkv_attention", "fused_qkv_attention.cu",
              "mdt_policy_tpu/ops/fused_qkv_attention.py:124", "b1", "voltron_train",
-             "bfloat16", replans + ("train", "mdt_train", "mdt_validation", "ddp")),
+             "bfloat16", replans + ("train", "mdt_train", "mdt_validation", "ddp", "annotator",
+                                    "misc_modules")),
             ("fused_layer_norm", "fused_norm.cu", "mdt_policy_tpu/ops/fused_norm.py:134",
              "b3", "clip_vision_train", "bfloat16",
              replans + ("train", "mdt_train", "mdt_validation", "extract", "extract_cli",
-                        "ddp")),
+                        "ddp", "annotator", "misc_modules")),
             ("fused_rms_norm", "fused_norm.cu", "mdt_policy_tpu/ops/fused_norm.py:159",
              "b3", "voltron_train", "bfloat16", ("replan", "rollout", "evaluate_cli", "train",
                                                  "mdt_train", "mdt_validation", "cache_train",
                                                  "train_cli", "extract_cli", "train_rollout",
-                                                 "video", "ddp", "samplers", "configs")),
+                                                 "video", "ddp", "samplers", "configs",
+                                                 "misc_modules")),
             ("small_seq_mha", "small_seq_mha.cu",
              "mdt_policy_tpu/ops/pallas_attention.py:77", "b2", "mdtv_dec_b32", "float32",
-             replans + ("mdt_validation", "extract_cli", "configs_bf16")),
+             replans + ("mdt_validation", "extract_cli", "configs_bf16", "misc_modules")),
             ("attention_halfblock", "attention_halfblock.cu",
              "mdt_policy_tpu/ops/attention_halfblock.py:145", "hb", "voltron", "bfloat16",
              ("extract", "extract_cli")),

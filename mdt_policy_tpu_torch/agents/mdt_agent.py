@@ -32,7 +32,7 @@ import torch
 import torch.nn as nn
 
 from ..diffusion import make_sample_density
-from ..models.blocks import SingleTokenProjection
+from ..models.blocks import ClipStyleProjection
 from ..models.clip import CLIPTextTower
 from ..models.masked_decoder import MaskedTransformerImgDecoder
 from ..models.mdt_transformer import MDTTransformer
@@ -92,7 +92,7 @@ class MDTAgentNet(nn.Module):
             mask_ratio=c.gen_mask_ratio,
             dtype=None if gen_dt == torch.float32 else gen_dt)
         # ref mdt_agent.py:112-117: token 1 of the 3 context tokens
-        self.clip_proj = SingleTokenProjection(1)
+        self.clip_proj = ClipStyleProjection("single_token", clip_token_index=1)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
         for name in self.frozen_prefixes:
             getattr(self, name).requires_grad_(False)

@@ -13,7 +13,7 @@ from typing import Callable, Tuple
 
 import torch
 
-__all__ = ["append_dims", "get_scalings", "precond_denoise"]
+__all__ = ["append_dims", "get_scalings", "precond_loss", "precond_denoise"]
 
 InnerFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -34,6 +34,22 @@ def get_scalings(sigma: torch.Tensor, sigma_data: float
     c_out = sigma * sigma_data * torch.rsqrt(var)
     c_in = torch.rsqrt(var)
     return c_skip, c_out, c_in
+
+
+def precond_loss(inner_fn: InnerFn, actions: torch.Tensor, noise: torch.Tensor,
+                 sigma: torch.Tensor, sigma_data: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Score-matching loss in the preconditioned space (reference
+    score_wrappers.py:45-63): the mean over every element of
+    (F(c_in * noised, sigma) - (a - c_skip * noised) / c_out)^2, noised =
+    a + noise * sigma. Returns (loss, model output). The agents' steps keep
+    their own loss code; this is the library function."""
+    c_skip, c_out, c_in = (append_dims(c, actions.ndim)
+                           for c in get_scalings(sigma, sigma_data))
+    noised = actions + noise * append_dims(sigma, actions.ndim)
+    model_out = inner_fn(noised * c_in, sigma)
+    target = (actions - c_skip * noised) / c_out
+    return torch.mean(torch.square(model_out - target)), model_out
 
 
 def precond_denoise(inner_fn: InnerFn, actions: torch.Tensor,

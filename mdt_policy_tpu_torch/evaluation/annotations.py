@@ -7,8 +7,8 @@ rollout_long_horizon.py:129-138 and evaluation/utils.py:219-240). Evaluating
 with any other text (e.g. the task name with underscores stripped) silently
 shifts the goal-text distribution and degrades CALVIN success rates — so the
 table is vendored as package data under mdt_policy_tpu_torch/conf/ (a copy
-of the JAX package's). The 389-sentence training table is not: nothing of
-the port reads it yet.
+of the JAX package's), and so is the 389-sentence training table
+(conf/annotations/new_playtable.yaml) the language annotator draws from.
 
 Also vendored: the symbolic task definitions the calvin_env task oracle is
 built from (conf/callbacks/rollout/tasks/new_playtable_tasks.yaml — the
@@ -25,6 +25,7 @@ _CONF = Path(__file__).resolve().parent.parent / "conf"
 
 __all__ = [
     "validation_annotations",
+    "train_annotations",
     "task_definitions",
     "make_task_oracle",
     "make_goal_fn",
@@ -41,6 +42,12 @@ def _load_yaml(path: Path):
 def validation_annotations(name: str = "new_playtable") -> Dict[str, List[str]]:
     """task -> [validation sentence] (exactly one per task)."""
     return _load_yaml(_CONF / "annotations" / f"{name}_validation.yaml")
+
+
+@functools.lru_cache(maxsize=None)
+def train_annotations(name: str = "new_playtable") -> Dict[str, List[str]]:
+    """task -> list of training sentences (the 389-sentence table)."""
+    return _load_yaml(_CONF / "annotations" / f"{name}.yaml")
 
 
 @functools.lru_cache(maxsize=None)

@@ -12,6 +12,12 @@ Numerics kept from the JAX package:
   affine LayerNorm of the CLIP and Voltron towers. B3 takes the statistics
   and the affine step in float32 and rounds once.
 * `modulate(x, shift, scale) = shift + x * scale` (not the DiT convention).
+* `bias` (False in every production config) gives the attention's output
+  projection, the MLP and the biasless LayerNorms their biases, as the
+  reference's flag does. `use_rot_embed` rotates q and k with rotary
+  embeddings over max(n_head // 2, 32) channels (`rotary_xpos`: with xpos
+  decay), and `custom_attn_mask` (boolean, True = keep) is ANDed with the
+  causal mask; every block and stack passes both through, as in JAX.
 
 The denoiser computes in float32 (the JAX default), or its block stacks in
 a compute dtype (`dtype`, bf16 for `denoiser_compute_dtype="bfloat16"`):
@@ -35,14 +41,18 @@ import torch.nn.functional as F
 from ..ops.attention import dropout, sdpa
 from ..ops.fused_norm import fused_layer_norm, fused_rms_norm
 from ..ops.small_seq_mha import MAX_DIM, MAX_SEQ, small_seq_mha
+from .position_embeddings import RotaryEmbedding
 
 __all__ = [
     "dense", "mish", "LayerNorm", "TowerLayerNorm",
     "BiaslessLayerNorm", "RMSNorm", "SwishGLU", "Attention", "MLP", "Block",
-    "AdaLNZero", "modulate", "ConditionedBlock", "NoiseBlock", "TransformerEncoder",
-    "TransformerDecoder", "TransformerFiLMDecoder", "MAPAttention", "MAPBlock",
-    "ClipStyleProjection", "SingleTokenProjection", "SinusoidalPosEmb",
-    "SigmaEmbedding",
+    "CrossAttentionOnlyBlock", "AdaLNZero", "modulate", "ConditionedBlock",
+    "NoiseBlock", "TransformerEncoder", "TransformerDecoder", "TransformerFiLMDecoder",
+    "MAPAttention", "MAPBlock", "MeanPooling", "ClipStyleProjection",
+    "SinusoidalPosEmb", "SigmaEmbedding", "TransformerEncoderInterleaved",
+    "TransformerFiLMEncoder", "TransformerCrossAttentionEncoder",
+    "TransformerCrossAttentionOnlyEncoder", "SiamneseDecoder",
+    "TransformerFiLMDecoderInterleaved",
 ]
 
 
@@ -87,9 +97,10 @@ class TowerLayerNorm(LayerNorm):
         return fused_layer_norm(x.contiguous(), self.weight, self.bias, self.eps)
 
 
-def BiaslessLayerNorm(dim: int) -> LayerNorm:
-    """Weight-only LayerNorm, eps 1e-5 (ref transformer_blocks.py:29-38)."""
-    return LayerNorm(dim, eps=1e-5, bias=False)
+def BiaslessLayerNorm(dim: int, bias: bool = False) -> LayerNorm:
+    """Weight-only LayerNorm, eps 1e-5 (ref transformer_blocks.py:29-38);
+    with `bias`, an affine one."""
+    return LayerNorm(dim, eps=1e-5, bias=bias)
 
 
 class RMSNorm(nn.Module):
@@ -133,17 +144,21 @@ def _project(x: torch.Tensor, layer: nn.Linear,
 
 class Attention(nn.Module):
     """Self (context None) or cross attention; q/k/v with bias, the output
-    projection without (ref :66-158, bias=False). Dropout on the
-    post-softmax probabilities (`attn_pdrop`) and on the output
-    (`resid_pdrop`) when a generator is passed. Self-attention over at most
-    `MAX_SEQ` tokens whose probabilities see no dropout runs kernel B2
-    (`ops/small_seq_mha.py`); everything else runs `sdpa`. `dtype` (None:
-    the parameters' float32) is the compute dtype: the projections take
-    their input and weights in it and the attention runs in it, while the
-    parameters stay float32, as flax `Dense(dtype=...)` in the JAX block."""
+    projection with `bias` (ref :66-158). Dropout on the post-softmax
+    probabilities (`attn_pdrop`) and on the output (`resid_pdrop`) when a
+    generator is passed. With `use_rot_embed`, q and k are rotated (float32
+    tables, cast back to the compute dtype). Self-attention over at most
+    `MAX_SEQ` tokens without a `custom_attn_mask`, whose probabilities see
+    no dropout, runs kernel B2 (`ops/small_seq_mha.py`), which takes the
+    rotated q and k as they come; everything else runs `sdpa`. `dtype`
+    (None: the parameters' float32) is the compute dtype: the projections
+    take their input and weights in it and the attention runs in it, while
+    the parameters stay float32, as flax `Dense(dtype=...)` in the JAX
+    block."""
 
     def __init__(self, n_embd: int, n_head: int, *, causal: bool = False,
-                 attn_pdrop: float = 0.0, resid_pdrop: float = 0.0,
+                 attn_pdrop: float = 0.0, resid_pdrop: float = 0.0, bias: bool = False,
+                 use_rot_embed: bool = False, rotary_xpos: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_head, self.causal, self.dtype = n_head, causal, dtype
@@ -151,38 +166,47 @@ class Attention(nn.Module):
         self.query = nn.Linear(n_embd, n_embd)
         self.key = nn.Linear(n_embd, n_embd)
         self.value = nn.Linear(n_embd, n_embd)
-        self.c_proj = nn.Linear(n_embd, n_embd, bias=False)
+        self.c_proj = nn.Linear(n_embd, n_embd, bias=bias)
+        # the reference's rotary width counts heads, not head channels
+        # (transformer_blocks.py:111): a head under 32 channels cannot take it
+        self.rotary = RotaryEmbedding(max(n_head // 2, 32), use_xpos=rotary_xpos) \
+            if use_rot_embed else None
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                custom_attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, T, C = x.shape
         kv_src = x if context is None else context
         q, k, v = (_project(src, layer, self.dtype)
                    .reshape(B, -1, self.n_head, C // self.n_head).transpose(1, 2)
                    for src, layer in ((x, self.query), (kv_src, self.key),
                                       (kv_src, self.value)))
-        if context is None and T <= MAX_SEQ and C // self.n_head <= MAX_DIM \
+        if self.rotary is not None:
+            q, k = self.rotary(q, k)
+            q, k = q.to(v.dtype), k.to(v.dtype)
+        if context is None and custom_attn_mask is None and T <= MAX_SEQ \
+                and C // self.n_head <= MAX_DIM \
                 and (generator is None or self.attn_pdrop == 0.0):
             # self-attention over a short sequence, probabilities without
             # dropout: kernel B2 (its output is (B, T, H, D) in memory)
             y = small_seq_mha(q, k, v, causal=self.causal)
         else:
-            y = sdpa(q, k, v, causal=self.causal, dropout_p=self.attn_pdrop,
-                     generator=generator)
+            y = sdpa(q, k, v, mask=custom_attn_mask, causal=self.causal,
+                     dropout_p=self.attn_pdrop, generator=generator)
         y = _project(y.transpose(1, 2).reshape(B, T, C), self.c_proj, self.dtype)
         return dropout(y, self.resid_pdrop, generator)
 
 
 class MLP(nn.Module):
-    """4x exact-GELU MLP without biases (ref :161-180), output dropout
+    """4x exact-GELU MLP, biases with `bias` (ref :161-180), output dropout
     `pdrop` when a generator is passed, GEMMs in `dtype` (see Attention)."""
 
     def __init__(self, n_embd: int, pdrop: float = 0.0,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, bias: bool = False):
         super().__init__()
         self.pdrop, self.dtype = pdrop, dtype
-        self.c_fc = nn.Linear(n_embd, 4 * n_embd, bias=False)
-        self.c_proj = nn.Linear(4 * n_embd, n_embd, bias=False)
+        self.c_fc = nn.Linear(n_embd, 4 * n_embd, bias=bias)
+        self.c_proj = nn.Linear(4 * n_embd, n_embd, bias=bias)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -200,21 +224,43 @@ class Block(nn.Module):
     def __init__(self, n_embd: int, n_heads: int, attn_pdrop: float = 0.0,
                  resid_pdrop: float = 0.0, mlp_pdrop: float = 0.0, *,
                  causal: bool = False, use_cross_attention: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+                 bias: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        drops = dict(attn_pdrop=attn_pdrop, resid_pdrop=resid_pdrop, dtype=dtype)
-        self.ln_1 = BiaslessLayerNorm(n_embd)
+        drops = dict(attn_pdrop=attn_pdrop, resid_pdrop=resid_pdrop, bias=bias,
+                     dtype=dtype)
+        self.ln_1 = BiaslessLayerNorm(n_embd, bias)
         self.attn = Attention(n_embd, n_heads, causal=causal, **drops)
         if use_cross_attention:
             self.ln3 = LayerNorm(n_embd, eps=1e-6)
             self.cross_att = Attention(n_embd, n_heads, causal=causal, **drops)
-        self.ln_2 = BiaslessLayerNorm(n_embd)
-        self.mlp = MLP(n_embd, mlp_pdrop, dtype)
+        self.ln_2 = BiaslessLayerNorm(n_embd, bias)
+        self.mlp = MLP(n_embd, mlp_pdrop, dtype, bias)
 
-    def forward(self, x, context=None, generator=None):
-        x = x + self.attn(self.ln_1(x), generator=generator)
+    def forward(self, x, context=None, generator=None, custom_attn_mask=None):
+        x = x + self.attn(self.ln_1(x), generator=generator,
+                          custom_attn_mask=custom_attn_mask)
         if context is not None and hasattr(self, "cross_att"):
-            x = x + self.cross_att(self.ln3(x), context, generator)
+            x = x + self.cross_att(self.ln3(x), context, generator, custom_attn_mask)
+        return x + self.mlp(self.ln_2(x), generator)
+
+
+class CrossAttentionOnlyBlock(nn.Module):
+    """Cross-attention to the context (self-attention without one), then
+    the MLP (ref :218-242)."""
+
+    def __init__(self, n_embd: int, n_heads: int, attn_pdrop: float = 0.0,
+                 resid_pdrop: float = 0.0, mlp_pdrop: float = 0.0, *,
+                 causal: bool = False, bias: bool = False,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.ln_1 = BiaslessLayerNorm(n_embd, bias)
+        self.cross_att = Attention(n_embd, n_heads, causal=causal, attn_pdrop=attn_pdrop,
+                                   resid_pdrop=resid_pdrop, bias=bias, dtype=dtype)
+        self.ln_2 = BiaslessLayerNorm(n_embd, bias)
+        self.mlp = MLP(n_embd, mlp_pdrop, dtype, bias)
+
+    def forward(self, x, context=None, generator=None, custom_attn_mask=None):
+        x = x + self.cross_att(self.ln_1(x), context, generator, custom_attn_mask)
         return x + self.mlp(self.ln_2(x), generator)
 
 
@@ -237,114 +283,138 @@ def modulate(x, shift, scale):
 
 
 class ConditionedBlock(nn.Module):
-    """Decoder block: AdaLN-conditioned causal self-attention and MLP, plain
-    cross-attention to the encoder context (ref :266-309). The modulation
-    stays float32; `dtype` as in Block."""
+    """AdaLN-conditioned self-attention and MLP, plain cross-attention to
+    the context (ref :266-309). The defaults are the decoder's block:
+    causal, with cross-attention (the FiLM encoder's is neither). The
+    modulation, from a `film_cond_dim`-wide `c` (default `n_embd`), stays
+    float32; `dtype` as in Block."""
 
     def __init__(self, n_embd: int, n_heads: int, attn_pdrop: float = 0.0,
                  resid_pdrop: float = 0.0, mlp_pdrop: float = 0.0, *,
+                 causal: bool = True, use_cross_attention: bool = True,
+                 bias: bool = False, film_cond_dim: int = 0,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        drops = dict(attn_pdrop=attn_pdrop, resid_pdrop=resid_pdrop, dtype=dtype)
-        self.ln_1 = BiaslessLayerNorm(n_embd)
-        self.attn = Attention(n_embd, n_heads, causal=True, **drops)
-        self.ln3 = LayerNorm(n_embd, eps=1e-6)
-        # causal as in the JAX block: a (10, n_context) lower-triangular mask
-        self.cross_att = Attention(n_embd, n_heads, causal=True, **drops)
-        self.ln_2 = BiaslessLayerNorm(n_embd)
-        self.mlp = MLP(n_embd, mlp_pdrop, dtype)
-        self.adaLN_zero = AdaLNZero(n_embd, n_embd)
+        drops = dict(attn_pdrop=attn_pdrop, resid_pdrop=resid_pdrop, bias=bias,
+                     dtype=dtype)
+        self.ln_1 = BiaslessLayerNorm(n_embd, bias)
+        self.attn = Attention(n_embd, n_heads, causal=causal, **drops)
+        if use_cross_attention:
+            # causal as in the JAX block: a (10, n_context) lower-triangular mask
+            self.ln3 = LayerNorm(n_embd, eps=1e-6)
+            self.cross_att = Attention(n_embd, n_heads, causal=causal, **drops)
+        self.ln_2 = BiaslessLayerNorm(n_embd, bias)
+        self.mlp = MLP(n_embd, mlp_pdrop, dtype, bias)
+        cond_dim = film_cond_dim or n_embd
+        self.adaLN_zero = AdaLNZero(cond_dim, cond_dim)
 
-    def forward(self, x, c, context, generator=None):
+    def forward(self, x, c, context=None, generator=None, custom_attn_mask=None):
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = \
             self.adaLN_zero(c)
         x = x + gate_msa * self.attn(modulate(self.ln_1(x), shift_msa, scale_msa),
-                                     generator=generator)
-        x = x + self.cross_att(self.ln3(x), context, generator)
+                                     generator=generator,
+                                     custom_attn_mask=custom_attn_mask)
+        if context is not None and hasattr(self, "cross_att"):
+            x = x + self.cross_att(self.ln3(x), context, generator, custom_attn_mask)
         return x + gate_mlp * self.mlp(modulate(self.ln_2(x), shift_mlp, scale_mlp),
                                        generator)
 
 
 class NoiseBlock(nn.Module):
-    """Decoder block of the noise encoder (ref :311-341): the sigma token
-    `c` added to the normed input of the causal self-attention and of the
-    causal cross-attention; the MLP unconditioned. `dtype` as in Block."""
+    """Block of the noise encoder (ref :311-341): the sigma token `c` added
+    to the normed input of the self-attention and of the cross-attention;
+    the MLP unconditioned. Defaults as ConditionedBlock's; `dtype` as in
+    Block."""
 
     def __init__(self, n_embd: int, n_heads: int, attn_pdrop: float = 0.0,
                  resid_pdrop: float = 0.0, mlp_pdrop: float = 0.0, *,
-                 dtype: Optional[torch.dtype] = None):
+                 causal: bool = True, use_cross_attention: bool = True,
+                 bias: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        drops = dict(attn_pdrop=attn_pdrop, resid_pdrop=resid_pdrop, dtype=dtype)
-        self.ln_1 = BiaslessLayerNorm(n_embd)
-        self.attn = Attention(n_embd, n_heads, causal=True, **drops)
-        self.ln3 = LayerNorm(n_embd, eps=1e-6)
-        self.cross_att = Attention(n_embd, n_heads, causal=True, **drops)
-        self.ln_2 = BiaslessLayerNorm(n_embd)
-        self.mlp = MLP(n_embd, mlp_pdrop, dtype)
+        drops = dict(attn_pdrop=attn_pdrop, resid_pdrop=resid_pdrop, bias=bias,
+                     dtype=dtype)
+        self.ln_1 = BiaslessLayerNorm(n_embd, bias)
+        self.attn = Attention(n_embd, n_heads, causal=causal, **drops)
+        if use_cross_attention:
+            self.ln3 = LayerNorm(n_embd, eps=1e-6)
+            self.cross_att = Attention(n_embd, n_heads, causal=causal, **drops)
+        self.ln_2 = BiaslessLayerNorm(n_embd, bias)
+        self.mlp = MLP(n_embd, mlp_pdrop, dtype, bias)
 
-    def forward(self, x, c, context, generator=None):
-        x = x + self.attn(self.ln_1(x) + c, generator=generator)
-        x = x + self.cross_att(self.ln3(x) + c, context, generator)
+    def forward(self, x, c, context=None, generator=None, custom_attn_mask=None):
+        x = x + self.attn(self.ln_1(x) + c, generator=generator,
+                          custom_attn_mask=custom_attn_mask)
+        if context is not None and hasattr(self, "cross_att"):
+            x = x + self.cross_att(self.ln3(x) + c, context, generator, custom_attn_mask)
         return x + self.mlp(self.ln_2(x), generator)
 
 
-class TransformerEncoder(nn.Module):
+class _Stack(nn.Module):
+    """`blocks` and the final biasless LayerNorm `ln` of a block stack."""
+
+    def __init__(self, blocks, embed_dim: int, bias: bool):
+        super().__init__()
+        self.blocks = nn.ModuleList(blocks)
+        self.ln = BiaslessLayerNorm(embed_dim, bias)
+
+
+class TransformerEncoder(_Stack):
     """Non-causal block stack + final biasless LN (ref :344-380)."""
 
     def __init__(self, embed_dim: int, n_heads: int, n_layers: int,
                  attn_pdrop: float = 0.0, resid_pdrop: float = 0.0,
-                 mlp_pdrop: float = 0.0, *, dtype: Optional[torch.dtype] = None):
-        super().__init__()
-        self.blocks = nn.ModuleList(
-            Block(embed_dim, n_heads, attn_pdrop, resid_pdrop, mlp_pdrop, dtype=dtype)
-            for _ in range(n_layers))
-        self.ln = BiaslessLayerNorm(embed_dim)
+                 mlp_pdrop: float = 0.0, *, bias: bool = False,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__((Block(embed_dim, n_heads, attn_pdrop, resid_pdrop, mlp_pdrop,
+                                bias=bias, dtype=dtype) for _ in range(n_layers)),
+                         embed_dim, bias)
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, custom_attn_mask=None):
         for block in self.blocks:
-            x = block(x, generator=generator)
+            x = block(x, generator=generator, custom_attn_mask=custom_attn_mask)
         return self.ln(x)
 
 
-class TransformerDecoder(nn.Module):
+class TransformerDecoder(_Stack):
     """Causal block stack with cross-attention to the context, no sigma
     conditioning in the blocks (ref :467-505): the decoder of the
     sigma-token configs, whose encoder sees sigma."""
 
     def __init__(self, embed_dim: int, n_heads: int, n_layers: int,
                  attn_pdrop: float = 0.0, resid_pdrop: float = 0.0,
-                 mlp_pdrop: float = 0.0, *, dtype: Optional[torch.dtype] = None):
-        super().__init__()
-        self.blocks = nn.ModuleList(
-            Block(embed_dim, n_heads, attn_pdrop, resid_pdrop, mlp_pdrop, causal=True,
-                  use_cross_attention=True, dtype=dtype)
-            for _ in range(n_layers))
-        self.ln = BiaslessLayerNorm(embed_dim)
+                 mlp_pdrop: float = 0.0, *, bias: bool = False,
+                 use_cross_attention: bool = True, dtype: Optional[torch.dtype] = None):
+        super().__init__((Block(embed_dim, n_heads, attn_pdrop, resid_pdrop, mlp_pdrop,
+                                causal=True, use_cross_attention=use_cross_attention,
+                                bias=bias, dtype=dtype) for _ in range(n_layers)),
+                         embed_dim, bias)
 
-    def forward(self, x, context, generator=None):
+    def forward(self, x, context=None, generator=None, custom_attn_mask=None):
         for block in self.blocks:
-            x = block(x, context, generator)
+            x = block(x, context, generator, custom_attn_mask)
         return self.ln(x)
 
 
-class TransformerFiLMDecoder(nn.Module):
+class TransformerFiLMDecoder(_Stack):
     """Causal sigma-conditioned decoder with cross-attention (ref
     :509-569): AdaLN blocks, or `NoiseBlock`s with `use_noise_encoder`."""
 
     def __init__(self, embed_dim: int, n_heads: int, n_layers: int,
                  attn_pdrop: float = 0.0, resid_pdrop: float = 0.0,
                  mlp_pdrop: float = 0.0, *, use_noise_encoder: bool = False,
-                 dtype: Optional[torch.dtype] = None):
-        super().__init__()
+                 bias: bool = False, use_cross_attention: bool = True,
+                 film_cond_dim: int = 0, dtype: Optional[torch.dtype] = None):
+        kw = dict(causal=True, use_cross_attention=use_cross_attention, bias=bias,
+                  dtype=dtype)
+        if not use_noise_encoder:
+            kw["film_cond_dim"] = film_cond_dim
         block = NoiseBlock if use_noise_encoder else ConditionedBlock
-        self.blocks = nn.ModuleList(
-            block(embed_dim, n_heads, attn_pdrop, resid_pdrop, mlp_pdrop, dtype=dtype)
-            for _ in range(n_layers))
-        self.ln = BiaslessLayerNorm(embed_dim)
+        super().__init__((block(embed_dim, n_heads, attn_pdrop, resid_pdrop, mlp_pdrop, **kw)
+                          for _ in range(n_layers)), embed_dim, bias)
 
-    def forward(self, x, c, context, generator=None):
+    def forward(self, x, c, context=None, generator=None, custom_attn_mask=None):
         for block in self.blocks:
-            x = block(x, c, context, generator)
+            x = block(x, c, context, generator, custom_attn_mask)
         return self.ln(x)
 
 
@@ -393,30 +463,57 @@ class MAPBlock(nn.Module):
         return latents.squeeze(1) if self.n_latents == 1 else latents
 
 
+class MeanPooling(nn.Module):
+    """Token mean -> (B, token_dim) (ref :873-879)."""
+
+    def __init__(self, token_dim: int):
+        super().__init__()
+        self.token_dim = token_dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.mean(dim=1).reshape(-1, self.token_dim)
+
+
+CLIP_STYLES = ("map", "map_state_only", "mean_pooling", "mean_pool_state_only", "mlp",
+               "single_token", "multihead")
+
+
 class ClipStyleProjection(nn.Module):
-    """Latent -> contrastive-embedding head (JAX blocks.py:463-493) in the
-    MDT-V style, "map": one MAPBlock latent, 8 heads, over the whole context.
-    The other styles are not ported (ROADMAP queue A, "The rest, behind
-    the production defaults")."""
+    """Latent -> contrastive-embedding head (JAX blocks.py:463-493; ref
+    :835-870), by `clip_style`: "map" (MDT-V: one MAPBlock latent, 8 heads,
+    over the whole context) or "map_state_only" (without the first token);
+    "mean_pooling" or "mean_pool_state_only"; "mlp" (the flattened
+    `num_token` tokens through a Linear, a flax default LayerNorm, eps 1e-6,
+    and tanh; flax infers the Linear's input width, here
+    `num_token * token_dim`); "single_token" (MDT: the token at
+    `clip_token_index`, no parameters); "multihead" (the tokens as they
+    are)."""
 
-    def __init__(self, token_dim: int = 384):
+    def __init__(self, clip_style: str = "map", token_dim: int = 384,
+                 clip_token_index: int = 0, num_token: int = 4):
         super().__init__()
-        self.latent_proj = MAPBlock(1, token_dim, 8, output_dim=token_dim)
+        if clip_style not in CLIP_STYLES:
+            raise ValueError(f"Invalid clip_style: {clip_style!r}")
+        self.clip_style, self.clip_token_index = clip_style, clip_token_index
+        if clip_style.startswith("map"):
+            self.latent_proj = MAPBlock(1, token_dim, 8, output_dim=token_dim)
+        elif clip_style.startswith("mean"):
+            self.latent_proj = MeanPooling(token_dim)
+        elif clip_style == "mlp":
+            self.latent_proj = nn.Linear(num_token * token_dim, token_dim)
+            self.latent_norm = LayerNorm(token_dim, eps=1e-6)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        style = self.clip_style
+        if style == "single_token":
+            return x[:, self.clip_token_index, :]
+        if style == "multihead":
+            return x
+        if style.endswith("state_only"):
+            x = x[:, 1:]
+        if style == "mlp":
+            return torch.tanh(self.latent_norm(self.latent_proj(x.reshape(x.shape[0], -1))))
         return self.latent_proj(x)
-
-
-class SingleTokenProjection(nn.Module):
-    """The parameter-free "single_token" contrastive head of MDT (JAX
-    blocks.py:478-479): the context token at `index`."""
-
-    def __init__(self, index: int):
-        super().__init__()
-        self.index = index
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x[:, self.index, :]
 
 
 class SinusoidalPosEmb(nn.Module):
@@ -446,3 +543,98 @@ class SigmaEmbedding(nn.Sequential):
         super().__init__(SinusoidalPosEmb(embed_dim),
                          nn.Linear(embed_dim, 2 * embed_dim), nn.Mish(),
                          nn.Linear(2 * embed_dim, embed_dim))
+
+
+class TransformerEncoderInterleaved(_Stack):
+    """Non-causal encoder returning every layer's output, the last after
+    the final LN, for the interleaved decoder (ref :383-423)."""
+
+    def __init__(self, embed_dim: int, n_heads: int, n_layers: int,
+                 attn_pdrop: float = 0.0, resid_pdrop: float = 0.0,
+                 mlp_pdrop: float = 0.0, *, bias: bool = False):
+        super().__init__((Block(embed_dim, n_heads, attn_pdrop, resid_pdrop, mlp_pdrop,
+                                bias=bias) for _ in range(n_layers)), embed_dim, bias)
+
+    def forward(self, x, generator=None):
+        outputs = []
+        for block in self.blocks:
+            x = block(x, generator=generator)
+            outputs.append(x)
+        outputs[-1] = self.ln(x)
+        return outputs
+
+
+class TransformerFiLMEncoder(_Stack):
+    """Non-causal AdaLN-conditioned encoder without cross-attention (ref
+    :426-464)."""
+
+    def __init__(self, embed_dim: int, n_heads: int, n_layers: int, film_cond_dim: int,
+                 attn_pdrop: float = 0.0, resid_pdrop: float = 0.0,
+                 mlp_pdrop: float = 0.0, *, bias: bool = False):
+        super().__init__((ConditionedBlock(embed_dim, n_heads, attn_pdrop, resid_pdrop,
+                                           mlp_pdrop, causal=False,
+                                           use_cross_attention=False, bias=bias,
+                                           film_cond_dim=film_cond_dim)
+                          for _ in range(n_layers)), embed_dim, bias)
+
+    def forward(self, x, c, generator=None):
+        for block in self.blocks:
+            x = block(x, c, generator=generator)
+        return self.ln(x)
+
+
+class TransformerCrossAttentionEncoder(_Stack):
+    """Non-causal blocks with self- and cross-attention (ref :636-674)."""
+
+    def __init__(self, embed_dim: int, n_heads: int, n_layers: int,
+                 attn_pdrop: float = 0.0, resid_pdrop: float = 0.0,
+                 mlp_pdrop: float = 0.0, *, bias: bool = False):
+        super().__init__((Block(embed_dim, n_heads, attn_pdrop, resid_pdrop, mlp_pdrop,
+                                use_cross_attention=True, bias=bias)
+                          for _ in range(n_layers)), embed_dim, bias)
+
+    def forward(self, x, cond=None, generator=None):
+        for block in self.blocks:
+            x = block(x, cond, generator)
+        return self.ln(x)
+
+
+class SiamneseDecoder(TransformerCrossAttentionEncoder):
+    """Non-causal cross-attention decoder (ref :794-832; the reference's
+    spelling): the same stack as TransformerCrossAttentionEncoder."""
+
+
+class TransformerCrossAttentionOnlyEncoder(_Stack):
+    """Stack of cross-attention-only blocks (ref :677-714)."""
+
+    def __init__(self, embed_dim: int, n_heads: int, n_layers: int,
+                 attn_pdrop: float = 0.0, resid_pdrop: float = 0.0,
+                 mlp_pdrop: float = 0.0, *, bias: bool = False):
+        super().__init__((CrossAttentionOnlyBlock(embed_dim, n_heads, attn_pdrop,
+                                                  resid_pdrop, mlp_pdrop, bias=bias)
+                          for _ in range(n_layers)), embed_dim, bias)
+
+    def forward(self, x, cond=None, generator=None):
+        for block in self.blocks:
+            x = block(x, cond, generator)
+        return self.ln(x)
+
+
+class TransformerFiLMDecoderInterleaved(_Stack):
+    """Causal AdaLN (or, with `use_noise_encoder`, noise-block) decoder
+    whose layer i cross-attends to `conds[i]`, an interleaved encoder's
+    outputs (ref :572-633)."""
+
+    def __init__(self, embed_dim: int, n_heads: int, n_layers: int, film_cond_dim: int,
+                 attn_pdrop: float = 0.0, resid_pdrop: float = 0.0,
+                 mlp_pdrop: float = 0.0, *, bias: bool = False,
+                 use_noise_encoder: bool = False):
+        kw = {} if use_noise_encoder else {"film_cond_dim": film_cond_dim}
+        block = NoiseBlock if use_noise_encoder else ConditionedBlock
+        super().__init__((block(embed_dim, n_heads, attn_pdrop, resid_pdrop, mlp_pdrop,
+                                bias=bias, **kw) for _ in range(n_layers)), embed_dim, bias)
+
+    def forward(self, x, c, conds, generator=None):
+        for i, block in enumerate(self.blocks):
+            x = block(x, c, conds[i], generator)
+        return self.ln(x)

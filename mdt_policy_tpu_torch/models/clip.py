@@ -16,6 +16,10 @@ and `ln_final` stay on B3.
   convolutions and the plain `ops/attention.py::sdpa`, in the weights'
   dtype.
 
+`clip_config_from_state_dict` reads a tower's hyperparameters off an
+OpenAI checkpoint's shapes; `clip_normalize` takes [0, 1] NHWC images to
+CLIP's statistics.
+
 OpenAI's `state_dict` layout (`transformer.resblocks.{i}.attn.in_proj_weight`,
 `conv1.weight`, `class_embedding`, `layer1.0.downsample.0.weight`,
 `attnpool.q_proj.weight`, ...), the one `port_clip_text`, `port_clip_vision`
@@ -26,6 +30,7 @@ read.
 from __future__ import annotations
 
 import collections
+import re
 
 import torch
 import torch.nn as nn
@@ -37,9 +42,58 @@ from ..ops.fused_qkv_attention import fused_qkv_attention
 from ..ops.mlp_halfblock import mlp_halfblock
 from .blocks import TowerLayerNorm
 
-__all__ = ["quick_gelu", "ResidualAttentionBlock", "CLIPTextTower",
+__all__ = ["clip_config_from_state_dict", "clip_normalize", "quick_gelu", "ResidualAttentionBlock", "CLIPTextTower",
            "CLIPVisionTower", "FrozenBatchNorm2d", "Bottleneck", "AttentionPool2d",
            "CLIPResNetTower"]
+
+
+# CLIP's image statistics (also `data/transforms.py`'s, which imports the agents)
+CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+def clip_config_from_state_dict(sd) -> dict:
+    """The tower hyperparameters of an OpenAI CLIP checkpoint, from its
+    tensors' shapes (the reference's `build_model`, clip.py:467-495, with no
+    module built). `visual.proj` marks a ViT; otherwise the RN family's
+    Bottleneck counts come from the `visual.layerN.*` key numbering and the
+    stem width from `visual.layer1.0.conv1`. Grid sides are rounded, as the
+    reference does, not truncated."""
+    if "visual.proj" in sd:
+        vision_width = sd["visual.conv1.weight"].shape[0]
+        vision_layers = len([k for k in sd if re.fullmatch(
+            r"visual\.transformer\.resblocks\.\d+\.attn\.in_proj_weight", k)])
+        vision_patch_size = sd["visual.conv1.weight"].shape[-1]
+        grid = round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)
+        image_resolution = vision_patch_size * grid
+        embed_dim = sd["visual.proj"].shape[1]
+    else:
+        vision_layers = tuple(
+            len(set(re.findall(rf"visual\.layer{b}\.(\d+)", " ".join(sd))))
+            for b in (1, 2, 3, 4))
+        vision_width = sd["visual.layer1.0.conv1.weight"].shape[0]
+        vision_patch_size = None
+        output_width = round((sd["visual.attnpool.positional_embedding"].shape[0] - 1) ** 0.5)
+        image_resolution = output_width * 32
+        embed_dim = sd["visual.attnpool.c_proj.weight"].shape[0]
+    return dict(
+        embed_dim=embed_dim, image_resolution=image_resolution,
+        vision_layers=vision_layers, vision_width=vision_width,
+        vision_patch_size=vision_patch_size,
+        context_length=sd["positional_embedding"].shape[0],
+        vocab_size=sd["token_embedding.weight"].shape[0],
+        transformer_width=sd["ln_final.weight"].shape[0],
+        transformer_heads=sd["ln_final.weight"].shape[0] // 64,
+        transformer_layers=len([k for k in sd if re.fullmatch(
+            r"transformer\.resblocks\.\d+\.attn\.in_proj_weight", k)]),
+    )
+
+
+def clip_normalize(images: torch.Tensor) -> torch.Tensor:
+    """[0, 1] NHWC images -> CLIP-normalized, in the images' dtype."""
+    mean = torch.tensor(CLIP_IMAGE_MEAN, dtype=images.dtype, device=images.device)
+    std = torch.tensor(CLIP_IMAGE_STD, dtype=images.dtype, device=images.device)
+    return (images - mean) / std
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:

@@ -32,7 +32,7 @@ from ..ops.fused_qkv_attention import fused_qkv_attention
 from ..ops.mlp_halfblock import mlp_halfblock
 from .blocks import RMSNorm, SwishGLU, TowerLayerNorm, dense
 
-__all__ = ["get_2d_sincos_pos_embed", "PatchEmbed", "LayerScale",
+__all__ = ["get_1d_sincos_pos_embed", "get_2d_sincos_pos_embed", "PatchEmbed", "LayerScale",
            "VoltronBlock", "VoltronViT"]
 
 
@@ -41,6 +41,11 @@ def _get_1d_sincos(dim: int, pos: np.ndarray) -> np.ndarray:
     omega = 1.0 / (10000 ** omega)
     out = np.einsum("m,d->md", pos.reshape(-1), omega)
     return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+
+def get_1d_sincos_pos_embed(embed_dim: int, length: int) -> np.ndarray:
+    """1-D sin-cos table over positions 0 .. length - 1, (length, embed_dim)."""
+    return _get_1d_sincos(embed_dim, np.arange(length))
 
 
 def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int) -> np.ndarray:

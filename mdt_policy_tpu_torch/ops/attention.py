@@ -14,7 +14,12 @@ from typing import Optional
 
 import torch
 
-__all__ = ["dropout", "sdpa"]
+__all__ = ["causal_mask", "dropout", "sdpa"]
+
+
+def causal_mask(q_len: int, k_len: int, device=None) -> torch.Tensor:
+    """Lower-triangular boolean (q_len, k_len) mask, True = attend."""
+    return torch.ones(q_len, k_len, dtype=torch.bool, device=device).tril()
 
 
 def dropout(x: torch.Tensor, p: float,
@@ -29,13 +34,16 @@ def dropout(x: torch.Tensor, p: float,
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-         causal: bool = False, layout: str = "bhtd", dropout_p: float = 0.0,
+         mask: Optional[torch.Tensor] = None, causal: bool = False,
+         layout: str = "bhtd", dropout_p: float = 0.0,
          generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Attention over (B, H, T, D) tensors (layout "bhtd") or (B, T, H, D)
-    tensors (layout "bthd"). `causal` keeps key j for query i when j <= i
-    (a lower-triangular (Tq, Tk) mask, as the JAX version). With a
-    `generator`, `dropout` runs on the post-softmax probabilities, as in the
-    reference."""
+    tensors (layout "bthd"). `mask` is boolean, broadcastable to
+    (B, H, Tq, Tk), True = keep; `causal` keeps key j for query i when
+    j <= i (a lower-triangular (Tq, Tk) mask ANDed with `mask`, as the JAX
+    version). Masked scores are set to the score dtype's smallest finite
+    value before the float32 softmax. With a `generator`, `dropout` runs on
+    the post-softmax probabilities, as in the reference."""
     if layout == "bthd":
         q, k, v = (t.transpose(-3, -2) for t in (q, k, v))
     q_len, k_len, head_dim = q.shape[-2], k.shape[-2], q.shape[-1]
@@ -46,8 +54,10 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         scores = scores.float() * scale
     if causal:
-        keep = torch.ones(q_len, k_len, dtype=torch.bool, device=q.device).tril()
-        scores = scores.masked_fill(~keep, torch.finfo(scores.dtype).min)
+        keep = causal_mask(q_len, k_len, q.device)
+        mask = keep if mask is None else mask & keep
+    if mask is not None:
+        scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
     probs = dropout(torch.softmax(scores.float(), dim=-1).to(q.dtype),
                     dropout_p, generator)
     out = torch.matmul(probs, v)

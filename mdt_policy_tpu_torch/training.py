@@ -55,8 +55,9 @@ from . import parallel
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["DataConfig", "DistributedConfig", "RolloutConfig", "RunConfig",
-           "TaskRolloutConfig", "TrainerConfig", "TrainingDivergedError", "ema_weights",
+__all__ = ["CACHE_MODE_AGENT_DEFAULTS", "DataConfig", "DistributedConfig", "RolloutConfig",
+           "RunConfig", "TaskRolloutConfig", "TrainerConfig", "TrainingDivergedError",
+           "cache_mode_config", "ema_weights",
            "load_config", "main", "stream_generator", "stream_seed", "train"]
 
 
@@ -248,6 +249,19 @@ def _make_agent(cfg: RunConfig):
     if cfg.agent == "mdt":
         return MDTConfig(**overrides)
     raise ValueError(f"unknown agent {cfg.agent!r}")
+
+
+# Agent-config fields whose default differs in embedding-cache mode
+# (`data.use_extracted_embeddings`), as the JAX package keeps them: empty
+# since both of its former members became `MDTVConfig` defaults.
+CACHE_MODE_AGENT_DEFAULTS: Dict[str, Any] = {}
+
+
+def cache_mode_config(**overrides):
+    """The `MDTVConfig` a cache-mode run has with these `agent_overrides`
+    (JAX training.py:243-248); an explicit override wins."""
+    from .agents import MDTVConfig
+    return MDTVConfig(**{**CACHE_MODE_AGENT_DEFAULTS, **overrides})
 
 
 # ---------------------------------------------------------------------------

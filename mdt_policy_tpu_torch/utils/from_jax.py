@@ -20,6 +20,15 @@ function:
     masked_decoder_from_jax   <-> port_masked_decoder
     clip_proj_from_jax        <-> the `clip_proj` part of port_mdtv_agent
 
+and, for modules no agent config reaches (no `torch_port` inverse):
+
+    block_stack_from_jax      every block stack of `models/blocks.py`
+    module_from_jax           a module of Dense, Embed and raw parameters
+                              (the time embeddings, the position biases)
+    clip_vision_tokens_from_jax, vision_clip_head_from_jax,
+    voltron_map_encoder_from_jax   `models/encoders_misc.py`
+    minilm_from_jax           `MiniLMEncoder`, into HF BertModel's keys
+
 and `from_jax` of the whole agent tree is the inverse of port_mdtv_agent
 (up to its reference module prefixes, `model.inner_model.` and so on); it
 also takes the JAX `MDTAgentNet` tree (ResNet encoders, `MDTTransformer`,
@@ -47,7 +56,9 @@ __all__ = ["from_jax", "state_from_jax", "voltron_vit_from_jax", "perceiver_from
            "clip_text_from_jax", "clip_vision_from_jax", "clip_resnet_from_jax",
            "mdtv_transformer_from_jax", "mdt_transformer_from_jax",
            "resnet18_gn_from_jax", "masked_decoder_from_jax",
-           "clip_proj_from_jax"]
+           "clip_proj_from_jax", "block_stack_from_jax", "module_from_jax",
+           "clip_vision_tokens_from_jax", "vision_clip_head_from_jax",
+           "voltron_map_encoder_from_jax", "minilm_from_jax"]
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -195,17 +206,31 @@ def clip_resnet_from_jax(params: Mapping) -> StateDict:
     return sd
 
 
-def clip_proj_from_jax(params: Mapping) -> StateDict:
-    """ClipStyleProjection, map style: the MAPBlock under `latent_proj`."""
-    p, pre = params["latent_proj"], "latent_proj"
-    sd: StateDict = {f"{pre}.latents": _t(p["latents"]),
-                     f"{pre}.attn_norm.g": _t(p["attn_norm"]["g"]),
-                     f"{pre}.mlp_norm.g": _t(p["mlp_norm"]["g"])}
+def _map_block(sd: StateDict, pre: str, p: Mapping) -> None:
+    """MAPBlock with RMSNorms and a SwishGLU MLP."""
+    sd[f"{pre}.latents"] = _t(p["latents"])
+    sd[f"{pre}.attn_norm.g"] = _t(p["attn_norm"]["g"])
+    sd[f"{pre}.mlp_norm.g"] = _t(p["mlp_norm"]["g"])
     _dense(sd, f"{pre}.projection", p["projection"])
     for name in ("q", "kv", "proj"):
         _dense(sd, f"{pre}.attn.{name}", p["attn"][name])
     _dense(sd, f"{pre}.mlp.0.project", p["mlp_glu"]["project"])
     _dense(sd, f"{pre}.mlp.1", p["mlp_out"])
+
+
+def clip_proj_from_jax(params: Mapping) -> StateDict:
+    """ClipStyleProjection: the MAPBlock under `latent_proj` (the map
+    styles), the Linear `latent_proj` and LayerNorm `latent_norm` ("mlp"),
+    or nothing (the parameter-free styles)."""
+    sd: StateDict = {}
+    p = params.get("latent_proj")
+    if p is None:
+        return sd
+    if "kernel" in p:
+        _dense(sd, "latent_proj", p)
+        _ln(sd, "latent_norm", params["latent_norm"])
+    else:
+        _map_block(sd, "latent_proj", p)
     return sd
 
 
@@ -223,20 +248,99 @@ def _attention(sd: StateDict, prefix: str, p: Mapping) -> None:
 
 
 def _block(sd: StateDict, prefix: str, p: Mapping) -> None:
-    """An encoder block, a decoder's AdaLN block, a noise block or a plain
-    causal decoder block: the cross-attention and the AdaLN modulation
-    where the tree has them."""
+    """An encoder block, a decoder's AdaLN block, a noise block, a plain
+    causal decoder block or a cross-attention-only block: the
+    self-attention, the cross-attention and the AdaLN modulation where the
+    tree has them (a cross-attention-only block has no `ln3`)."""
     _ln(sd, f"{prefix}.ln_1", p["ln_1"]["LayerNorm_0"])
-    _attention(sd, f"{prefix}.attn", p["attn"])
+    if "attn" in p:
+        _attention(sd, f"{prefix}.attn", p["attn"])
     _ln(sd, f"{prefix}.ln_2", p["ln_2"]["LayerNorm_0"])
     _dense(sd, f"{prefix}.mlp.c_fc", p["mlp"]["c_fc"])
     _dense(sd, f"{prefix}.mlp.c_proj", p["mlp"]["c_proj"])
     if "cross_att" in p:
-        _ln(sd, f"{prefix}.ln3", p["ln3"])
+        if "ln3" in p:
+            _ln(sd, f"{prefix}.ln3", p["ln3"])
         _attention(sd, f"{prefix}.cross_att", p["cross_att"])
     if "adaLN_zero" in p:
         _dense(sd, f"{prefix}.adaLN_zero.modulation.1",
                p["adaLN_zero"]["modulation"])
+
+
+def block_stack_from_jax(params: Mapping) -> StateDict:
+    """Any block stack of `models/blocks.py` (`block_{i}` and the final
+    `ln`) -> `blocks.{i}.*` and `ln.*`."""
+    sd: StateDict = {}
+    for i in range(_n_numbered(params, "block_")):
+        _block(sd, f"blocks.{i}", params[f"block_{i}"])
+    _ln(sd, "ln", params["ln"]["LayerNorm_0"])
+    return sd
+
+
+def module_from_jax(params: Mapping) -> StateDict:
+    """A module whose tree holds Dense layers (-> `name.weight`, `name.bias`),
+    Embed tables (-> `name.weight`) and raw parameters (-> `name`): the time
+    embeddings of `models/encoders_misc.py`, `RelativePositionBias`,
+    `DynamicPositionBias`."""
+    sd: StateDict = {}
+    for name, p in params.items():
+        if isinstance(p, Mapping) and "kernel" in p:
+            _dense(sd, name, p)
+        elif isinstance(p, Mapping):
+            sd[f"{name}.weight"] = _t(p["embedding"])
+        else:
+            sd[name] = _t(p)
+    return sd
+
+
+def clip_vision_tokens_from_jax(params: Mapping) -> StateDict:
+    """CLIPVisionTokens: the ViT tower's keys without `ln_post` and `proj`."""
+    sd: StateDict = {"class_embedding": _t(params["class_embedding"]),
+                     "positional_embedding": _t(params["positional_embedding"])}
+    _conv(sd, "conv1", params["conv1"])
+    _ln(sd, "ln_pre", params["ln_pre"])
+    _clip_resblocks(sd, params)
+    return sd
+
+
+def vision_clip_head_from_jax(params: Mapping) -> StateDict:
+    """VisionClipHead: the tower under `clip` (ViT or RN50 family) and the
+    head `fc1`, `fc2`."""
+    tower = params["clip"]
+    convert = clip_resnet_from_jax if "attnpool" in tower else clip_vision_from_jax
+    sd: StateDict = {f"clip.{k}": v for k, v in convert(tower).items()}
+    _dense(sd, "fc1", params["fc1"])
+    _dense(sd, "fc2", params["fc2"])
+    return sd
+
+
+def voltron_map_encoder_from_jax(params: Mapping) -> StateDict:
+    """VoltronMAPEncoder: `vcond` (the Voltron ViT) and `vector_extractor`
+    (a MAPBlock)."""
+    sd: StateDict = {f"vcond.{k}": v for k, v in voltron_vit_from_jax(params["vcond"]).items()}
+    _map_block(sd, "vector_extractor", params["vector_extractor"])
+    return sd
+
+
+def minilm_from_jax(params: Mapping) -> StateDict:
+    """The JAX `MiniLMEncoder` tree -> HF BertModel's keys (the inverse of
+    JAX `port_minilm_weights`)."""
+    sd: StateDict = {
+        "embeddings.word_embeddings.weight": _t(params["word_embeddings"]["embedding"]),
+        "embeddings.position_embeddings.weight": _t(params["position_embeddings"]),
+        "embeddings.token_type_embeddings.weight": _t(params["token_type_embeddings"]),
+    }
+    _ln(sd, "embeddings.LayerNorm", params["emb_ln"])
+    for i in range(_n_numbered(params, "layer_")):
+        p, pre = params[f"layer_{i}"], f"encoder.layer.{i}"
+        for name in ("query", "key", "value"):
+            _dense(sd, f"{pre}.attention.self.{name}", p[name])
+        _dense(sd, f"{pre}.attention.output.dense", p["attn_out"])
+        _ln(sd, f"{pre}.attention.output.LayerNorm", p["attn_ln"])
+        _dense(sd, f"{pre}.intermediate.dense", p["fc1"])
+        _dense(sd, f"{pre}.output.dense", p["fc2"])
+        _ln(sd, f"{pre}.output.LayerNorm", p["out_ln"])
+    return sd
 
 
 def mdtv_transformer_from_jax(params: Mapping) -> StateDict:
@@ -253,10 +357,7 @@ def mdtv_transformer_from_jax(params: Mapping) -> StateDict:
     _dense(sd, "action_emb", params["action_emb"])
     _dense(sd, "action_pred", params["action_pred"])
     for part in ("encoder", "decoder"):
-        tree = params[part]
-        for i in range(_n_numbered(tree, "block_")):
-            _block(sd, f"{part}.blocks.{i}", tree[f"block_{i}"])
-        _ln(sd, f"{part}.ln", tree["ln"]["LayerNorm_0"])
+        sd.update({f"{part}.{k}": v for k, v in block_stack_from_jax(params[part]).items()})
     return sd
 
 

@@ -1,8 +1,8 @@
 """The MDT (ResNet) variant of the PyTorch port against the JAX package, at
 float32 and small widths: the ResNet-18-GroupNorm encoder, the spatial
-softmax, the MDT denoiser, the whole tiny agent's action chunk and the
-closed-loop policy (`MDTPolicy`) over several replans, with the same numpy
-inputs and initial noise on both sides.
+softmax, the MDT denoiser and the whole tiny agent's parameter tree, with
+the same numpy inputs on both sides; its action chunk and closed-loop
+policy are in tests/test_torch_mdt_policy.py.
 
 Module tolerance: rtol 1e-4, atol 5e-5 (tests/test_torch_modules.py): both
 sides compute in float32 and differ only in summation order and
@@ -19,15 +19,12 @@ import pytest
 import torch
 
 from mdt_policy_tpu.agents import MDTConfig as JaxMDTConfig
-from mdt_policy_tpu.agents import MDTPolicy as JaxPolicy
 from mdt_policy_tpu.agents import init_mdt_agent
-from mdt_policy_tpu.agents.mdtv_agent import denoise_actions as jax_denoise
 from mdt_policy_tpu.models.mdt_transformer import MDTTransformer as JMDT
 from mdt_policy_tpu.models.resnet import BesoResNetEncoder as JResNetEncoder
 from mdt_policy_tpu.models.resnet import ResNet18GN as JResNet
 from mdt_policy_tpu.models.resnet import SpatialSoftmax as JSpatialSoftmax
-from mdt_policy_tpu_torch.agents import (MDTAgentNet, MDTConfig, MDTPolicy,
-                                         MDTVPolicy, denoise_actions)
+from mdt_policy_tpu_torch.agents import MDTAgentNet, MDTConfig
 from mdt_policy_tpu_torch.models.mdt_transformer import MDTTransformer
 from mdt_policy_tpu_torch.models.resnet import (BesoResNetEncoder, ResNet18GN,
                                                 SpatialSoftmax)
@@ -284,46 +281,3 @@ def _jax_noises(seed, n):
         k_init, _ = jax.random.split(k)
         out.append(torch.from_numpy(np.array(jax.random.normal(k_init, (B, 10, 7)))))
     return out
-
-
-def test_mdt_chunk_matches_jax():
-    net, params, port = _agents()
-    x = _inputs()
-    apply = functools.partial(net.apply, {"params": params})
-    emb = apply(x["rgb_static"], x["rgb_gripper"], method="perceive")
-    goal = apply(x["lang_tokens"], method="encode_language_goal")
-    chunk = jax.jit(functools.partial(jax_denoise, net, modality="lang"))(
-        params, emb, goal, jax.random.PRNGKey(7))
-    k_init, _ = jax.random.split(jax.random.PRNGKey(7))
-    noise = torch.from_numpy(np.array(jax.random.normal(k_init, (B, 10, 7))))
-    with torch.no_grad():
-        p_emb = port.perceive(torch.from_numpy(x["rgb_static"]),
-                              torch.from_numpy(x["rgb_gripper"]))
-        p_goal = port.encode_language_goal(torch.from_numpy(x["lang_tokens"]))
-        p_chunk = denoise_actions(port, p_emb, p_goal, noise=noise)
-    for key in ("static", "gripper"):
-        np.testing.assert_allclose(p_emb[key].numpy(), np.asarray(emb[key]), **TOL)
-    np.testing.assert_allclose(p_goal.numpy(), np.asarray(goal), **TOL)
-    np.testing.assert_allclose(p_chunk.numpy(), np.asarray(chunk), **CHUNK_TOL)
-
-
-@pytest.mark.parametrize("goal_kind", ["lang_tokens", "rgb_static_goal"])
-def test_mdt_policy_matches_jax_over_replans(goal_kind):
-    """21 steps (three replans) through both policies with the same frames,
-    goal and initial draws: every action agrees; the text tower runs once."""
-    assert MDTPolicy is MDTVPolicy
-    net, params, port = _agents()
-    x = _inputs(seed=4)
-    obs = {k: x[k] for k in ("rgb_static", "rgb_gripper")}
-    goal = {goal_kind: x["lang_tokens"] if goal_kind == "lang_tokens"
-            else x["rgb_static"][:, 0]}
-    jpolicy = JaxPolicy(net, params, rng=jax.random.PRNGKey(11))
-    jactions = [np.asarray(jpolicy.step(obs, goal)) for _ in range(21)]
-    noises = iter(_jax_noises(11, 3))
-    policy = MDTPolicy(port, generator=torch.Generator().manual_seed(0))
-    with mock.patch.object(policy, "_draw_noise", lambda batch: next(noises)), \
-            mock.patch.object(port, "encode_language_goal",
-                              wraps=port.encode_language_goal) as encode:
-        actions = [policy.step(obs, goal).numpy() for _ in range(21)]
-    assert encode.call_count == (goal_kind == "lang_tokens")
-    np.testing.assert_allclose(np.stack(actions), np.stack(jactions), **CHUNK_TOL)
