@@ -9,8 +9,10 @@ replans through `MDTVPolicy` (alias `MDTPolicy`), CALVIN's chain evaluation
 on the fake env through `evaluate_policy` and `evaluate_policy_batched`
 for both, the dual-modality train step of both families through
 `train_step` at B=128 per stream, the MDT validation step, checkpoints of
-both families' train states through `Checkpointer`, the evaluate CLI
-(`mdt_policy_tpu_torch.evaluate.main`) on those run directories, the
+both families' train states through `Checkpointer`, a reference-format
+Lightning checkpoint of MDT-V converted by `utils/from_reference.py`, the
+evaluate CLI (`mdt_policy_tpu_torch.evaluate.main`) on MDT's run directory
+and on the converted MDT-V one, the
 frozen-tower embedding extraction through `extract_embeddings` and
 `extract_lang_goals` over a synthetic split, and the cache-mode train step
 from the rows it wrote, `train()` and the extraction CLI over an on-disk
@@ -109,12 +111,14 @@ benchmark and the steps' FLOPs. Prints one JSON line per phase:
               steps included; one more step from each side with the same
               draws, metrics within CHECKPOINT_STEP_REL_TOL.
  15. evaluate_cli  `evaluate.main(["--train-folder", run, "--fake-env",
-              "--num-sequences", "4", ...])` in this process per family:
-              results.json is the never-solving scripted oracle's, env
-              steps and replans follow from it (1,440 and 144), the
-              policy's weights are the checkpoint's EMA, and the B1, B2 and
-              B3 launches are the graph phase's per replan run plus the
-              text tower's per goal.
+              "--num-sequences", "4", ...])` in this process per family,
+              MDT-V's run the one reference_ckpt converted: results.json
+              is the never-solving scripted oracle's, env steps and replans
+              follow from it (1,440 and 144), the policy's weights are the
+              checkpoint's EMA, and the B1, B2 and B3 launches are the graph
+              phase's per replan run plus the text tower's per goal; a graph
+              replan of the converted MDT-V net is bit-equal to the same
+              replan of the net the file was written from.
  16. extract  512 synthetic frames (200 px static, 84 px gripper) at batch
               64 with one shift variant, and 512 annotation sentences,
               through the B4/B5 route: file layout, the bit-exact
@@ -219,6 +223,19 @@ benchmark and the steps' FLOPs. Prints one JSON line per phase:
               1,000-frame synthetic split: frames path, shard scaling at 1,
               2 and 4 processes, `DevicePrefetcher` over the loader (pinned
               copies and `train_batch` on the card), embedding cache.
+ 29. reference_ckpt  (between checkpoint and evaluate_cli) a reference-format
+              Lightning `.ckpt` (~1.75 GB, f32) written from a seeded
+              `MDTVConfig()` net: its weights under the reference's module
+              prefixes as the EMA callback's list, a perturbed copy as the
+              raw `state_dict`, keys no converter reads, a `proprio_emb`
+              head, `hyper_parameters` of a class whose module is gone when
+              the file is read; `from_reference.main([ckpt, out])` in this
+              process: seconds, the file's and the run's bytes, the
+              report's counts (every key of the net read, the stand-ins
+              ignored, `proprio_emb` dropped, nothing missing). The file is
+              removed after, and the run's raw trainables are moved off
+              its EMA, which evaluate_cli must restore. Fails past
+              REFERENCE_LIMIT_S.
 
 Then the kernel summary line, and last `{"ok": true, "device": ...}`. The
 summary holds each kernel at its main shape, with its launches on every
@@ -407,6 +424,11 @@ TRAIN_STEPS_TIMED = 6
 # f32 roundings (~1e-7 relative), 1000x under this bound.
 CHECKPOINT_STEP_REL_TOL = 1e-4
 EVAL_CHAINS = 4  # evaluate_cli: chains of the fake-env evaluation a family
+REFERENCE_SEED = 16  # reference_ckpt: the seed of the net its file is written from
+REFERENCE_LIMIT_S = 40  # reference_ckpt: its bound on the phase's seconds
+# the module of the reference file's pickled `hyper_parameters` class: it is
+# registered only while the file is written, as Lightning is on no machine here
+REFERENCE_HPARAMS_MODULE = "reference_lightning_hparams"
 # B4/B5 (kernel, tower, B, T, C, heads or hidden width): extraction at batch
 # 64 (Voltron 128 images: both cameras in one call; CLIP vision 64) and the
 # text tower over 512 annotation sentences
@@ -995,11 +1017,12 @@ def make_tokens(torch, cfg, batch: int, gen):
     return tokens
 
 
-def build_net(torch, cfg, device):
+def build_net(torch, cfg, device, seed: int = 0):
     """The agent of `cfg`'s family (MDTConfig: MDT, else MDT-V) with seeded
     random weights."""
     from mdt_policy_tpu_torch.agents import init_random_, make_agent_net
-    return init_random_(make_agent_net(cfg, device=device), torch.Generator().manual_seed(0))
+    return init_random_(make_agent_net(cfg, device=device),
+                        torch.Generator().manual_seed(seed))
 
 
 class Launches:
@@ -2171,7 +2194,106 @@ def eval_results(chains: int):
                   "task_info": {t: {"success": 0, "total": firsts.count(t)} for t in firsts}}}
 
 
-def phase_evaluate_cli(torch, runs, device, launches: Launches, smi):
+def reference_key(port_key: str, ref_prefix) -> str:
+    """The reference file's key of a port key (`from_reference.REF_PREFIX`
+    read backwards)."""
+    for ref, port in ref_prefix.items():
+        if port_key.startswith(port):
+            return ref + port_key[len(port):]
+    raise KeyError(port_key)
+
+
+def phase_reference_ckpt(torch, device, smi, root):
+    """The published-checkpoint path: a reference-format Lightning `.ckpt`
+    written from a seeded `MDTVConfig()` net (its `state_dict` renamed back
+    through `REF_PREFIX` as the EMA callback's weight list, float32; a
+    perturbed copy as the raw `state_dict`; stand-ins for keys no converter
+    reads and the `proprio_emb` head between them; `hyper_parameters` of a
+    class whose module is gone when the file is read), converted by
+    `from_reference.main([ckpt, out])` in this process; the file is removed
+    after. Checks the report: every key of the net read, the stand-ins
+    ignored, `proprio_emb` dropped (the config has no proprio), nothing kept
+    at its init. The run's raw trainables are then moved by 1, so that
+    only its EMA is the source net's. Returns the source net and (the run
+    directory, host copies of the weights it must restore), for
+    evaluate_cli."""
+    import collections
+    import types
+    from mdt_policy_tpu_torch.agents import MDTVConfig
+    from mdt_policy_tpu_torch.utils import from_reference
+    from mdt_policy_tpu_torch.utils.checkpoint import STATE_FILE
+    t_phase = time.perf_counter()
+    cfg = MDTVConfig()
+    source = build_net(torch, cfg, device, seed=REFERENCE_SEED)
+    own = source.state_dict()
+    gen = torch.Generator().manual_seed(REFERENCE_SEED)
+    stand_ins = {"language_goal.clip_rn50.visual.conv1.weight": (64, 3, 3, 3),
+                 "gen_img.decoder_pe": (1, 196, cfg.gen_decoder_dim),
+                 "img_encoder.vcond.encoder_pe": (1, 196, cfg.perceiver_dim),
+                 "model.inner_model.proprio_emb.0.weight": (cfg.embed_dim, cfg.proprio_dim),
+                 "model.inner_model.proprio_emb.0.bias": (cfg.embed_dim,),
+                 "model.inner_model.proprio_emb.2.weight": (cfg.embed_dim, cfg.embed_dim),
+                 "model.inner_model.proprio_emb.2.bias": (cfg.embed_dim,)}
+    ema = collections.OrderedDict()
+    for key, value in own.items():
+        ref = reference_key(key, from_reference.REF_PREFIX)
+        ema[ref] = value.detach().to("cpu", torch.float32, copy=True)
+        for extra, shape in stand_ins.items():  # each after its network's first key
+            if extra.startswith(ref.split(".")[0] + ".") and extra not in ema:
+                ema[extra] = torch.randn(shape, generator=gen)
+    hparams = types.ModuleType(REFERENCE_HPARAMS_MODULE)
+    hparams.AttributeDict = type("AttributeDict", (dict,),
+                                 {"__module__": REFERENCE_HPARAMS_MODULE})
+    path = os.path.join(root, "mdtv_reference.ckpt")
+    sys.modules[REFERENCE_HPARAMS_MODULE] = hparams
+    t0 = time.perf_counter()
+    try:
+        torch.save({"epoch": 19, "global_step": 24000, "state_dict": collections.OrderedDict(
+                        (k, v + 0.5) for k, v in ema.items()),
+                    "callbacks": {"EMA": {"ema_weights": list(ema.values())}},
+                    "optimizer_states": [], "hparams_name": "kwargs",
+                    "hyper_parameters": hparams.AttributeDict(lr=1e-4, seed=REFERENCE_SEED)},
+                   path)
+    finally:
+        del sys.modules[REFERENCE_HPARAMS_MODULE]
+    write_s = time.perf_counter() - t0
+    file_bytes = os.path.getsize(path)
+    proprio = [k for k in stand_ins if ".proprio_emb." in k]
+    read = sorted([reference_key(k, from_reference.REF_PREFIX) for k in own] + proprio)
+    ignored = sorted(set(stand_ins) - set(proprio))
+    dropped = sorted(k.replace("model.inner_model.", "inner.") for k in proprio)
+    del ema
+    out = os.path.join(root, "mdtv_converted")
+    t0 = time.perf_counter()
+    report = from_reference.main([path, out])
+    convert_s = time.perf_counter() - t0
+    os.remove(path)
+    # at step 0 the EMA is the raw weights: move the raw trainables so that
+    # evaluate_cli's weight check tells which of the two the run restores
+    state_path = os.path.join(out, "checkpoints", "0", STATE_FILE)
+    state = torch.load(state_path, weights_only=True)
+    for name in state["ema"]:
+        state["params"][name] += 1.0
+    torch.save(state, state_path)
+    del state
+    saved = {"ema": {n: p.detach().to("cpu", copy=True) for n, p in source.trainable_parameters()},
+             "params": {k: v.detach().to("cpu", copy=True) for k, v in own.items()}}
+    row = {"phase": "reference_ckpt", "params": sum(v.numel() for v in own.values()),
+           "file_bytes": file_bytes, "write_s": write_s, "convert_s": convert_s,
+           "run_bytes": os.path.getsize(state_path),
+           "report": report.counts(), "dropped": report.dropped, "ignored": report.ignored,
+           "seconds": time.perf_counter() - t_phase, "limit_s": REFERENCE_LIMIT_S,
+           "card": smi}
+    emit(row)
+    if not (sorted(report.ignored) == ignored and sorted(report.dropped) == dropped
+            and report.missing == [] and sorted(report.read) == read):
+        raise AssertionError(f"the reference checkpoint's conversion disagrees: {row}")
+    if row["seconds"] > REFERENCE_LIMIT_S:
+        raise AssertionError(f"reference_ckpt took over {REFERENCE_LIMIT_S} s: {row}")
+    return source, (out, saved)
+
+
+def phase_evaluate_cli(torch, runs, device, launches: Launches, smi, sources):
     """`evaluate.main([--train-folder RUN, --fake-env, --num-sequences 4])`
     in this process on each family's run directory: results.json is the
     scripted oracle's (every chain fails its first task after a whole
@@ -2179,11 +2301,15 @@ def phase_evaluate_cli(torch, runs, device, launches: Launches, smi):
     weights are the checkpoint's EMA (and the frozen towers' own), and the
     kernels launched are the graph phase's per replan run (each replan and
     each warm-up call before the capture) plus the text tower's per goal
-    encode."""
+    encode. A family in `sources` (a run directory converted from another
+    net) also holds a graph replan of the CLI's net bit-equal to the same
+    replan of the source net, from the same draws; its launches are not the
+    path's."""
     from mdt_policy_tpu_torch import evaluate
     from mdt_policy_tpu_torch.agents import MDTAgentNet, MDTVAgentNet, MDTVPolicy
     from mdt_policy_tpu_torch.evaluation import FakeEnv
     launches.reset()
+    total = {}
     for family, (run, saved) in runs.items():
         before = launches.read()
         built, printed = [], io.StringIO()
@@ -2206,10 +2332,17 @@ def phase_evaluate_cli(torch, runs, device, launches: Launches, smi):
             seconds = time.perf_counter() - t0
         after = launches.read()
         got = {k: after[k] - before[k] for k in after}
+        total = {k: total.get(k, 0) + v for k, v in got.items()}
         policy, cfg, _ = built[0]
         net = policy.inner.net
         weights_equal = all(torch.equal(v.cpu(), saved["ema"].get(k, saved["params"][k]))
                             for k, v in net.state_dict().items())
+        replan_equal = None
+        if family in sources:
+            obs, goal = make_inputs(torch, cfg, 1, seed=43, device=device)
+            chunks = [MDTVPolicy(n, generator=torch.Generator(device).manual_seed(44)).plan(
+                obs, goal) for n in (net, sources[family])]
+            replan_equal = torch.equal(*chunks) and bool(torch.isfinite(chunks[0]).all())
         with open(os.path.join(run, "evaluation", "results.json")) as f:
             results = json.load(f)
         want_steps, want_plans = expected_rollout([0] * EVAL_CHAINS, cfg.multistep)
@@ -2222,6 +2355,8 @@ def phase_evaluate_cli(torch, runs, device, launches: Launches, smi):
                "env_steps": env_step.call_count, "replans": plan.call_count,
                "captures": capture.call_count, "goal_encodes": encode.call_count,
                "cuda_graph": policy.inner.cuda_graph, "ema_weights": weights_equal,
+               "converted_from_reference": family in sources,
+               "graph_replan_equals_source": replan_equal,
                "launches": got, "expected_launches": want,
                "per_replan_run": cached, "seconds": seconds,
                "env_steps_per_s": env_step.call_count / seconds,
@@ -2232,14 +2367,15 @@ def phase_evaluate_cli(torch, runs, device, launches: Launches, smi):
                                        "chain_sr": results["0"]["chain_sr"]}
                 and env_step.call_count == sum(want_steps)
                 and plan.call_count == sum(want_plans)
-                and encode.call_count == EVAL_CHAINS and weights_equal):
+                and encode.call_count == EVAL_CHAINS and weights_equal
+                and replan_equal is not False):
             raise AssertionError(f"{family} evaluate CLI disagrees with the oracle's rule "
                                  f"or the checkpoint: {row}")
         if got != want:
             raise AssertionError(f"{family} evaluate CLI launches {got}, expected {want}")
         del built, policy, net
         torch.cuda.empty_cache()
-    return launches.read()
+    return total
 
 
 def halfblock_inputs(torch, kernel, tower, B, T, C, n, device, seed=0):
@@ -3899,8 +4035,11 @@ def main() -> int:
         runs = phase_checkpoint(torch, {"mdtv": state, "mdt": mdt_state}, device, smi, root)
         del state, mdt_state, mdt
         torch.cuda.empty_cache()
-        paths["evaluate_cli"] = phase_evaluate_cli(torch, runs, device, launches, smi)
-    del runs
+        # MDT-V's evaluation takes the run converted from a reference file
+        source, runs["mdtv"] = phase_reference_ckpt(torch, device, smi, root)
+        paths["evaluate_cli"] = phase_evaluate_cli(torch, runs, device, launches, smi,
+                                                   sources={"mdtv": source})
+    del runs, source
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         paths["extract"] = phase_extract(torch, net, device, launches, smi, root)

@@ -1,6 +1,7 @@
-"""One MDT (ResNet) train step and one validation step of the PyTorch port
-against the JAX package, at a tiny config, and a JAX train state carried
-into the port by `state_from_jax`.
+"""One MDT (ResNet) train step of the PyTorch port against the JAX
+package, at a tiny config, and a JAX train state carried into the port by
+`state_from_jax` (the validation step is in
+tests/test_torch_mdt_validation_step.py).
 
 As in tests/test_torch_train_step.py: the JAX agent from `init_mdt_agent`,
 its parameters carried into the port by `from_jax`, the same dual-scope
@@ -22,8 +23,7 @@ from mdt_policy_tpu.agents import MDTConfig as JaxMDTConfig
 from mdt_policy_tpu.agents import init_mdt_agent
 from mdt_policy_tpu.agents import mdtv_agent as jagent
 from mdt_policy_tpu.agents.mdt_agent import MDTAgentNet as JaxMDTAgentNet
-from mdt_policy_tpu_torch.agents import (MDTAgentNet, MDTConfig, init_train_state,
-                                         train_step, validation_step)
+from mdt_policy_tpu_torch.agents import MDTAgentNet, MDTConfig, init_train_state, train_step
 from mdt_policy_tpu_torch.utils.from_jax import from_jax, state_from_jax
 from test_torch_train_step import (DTYPES, LOSSES, _assert_same_update, _batch, _draws,
                                    _patched_jax_random, _port_draws)
@@ -191,25 +191,6 @@ def test_mdt_train_step_params_ema_and_metrics_match_jax():
     assert pm["train/ema_rate"] == jm["train/ema_rate"] == 0.0
 
 
-def test_mdt_validation_step_matches_jax():
-    """DDIM-10 from the hoisted context, the action MSE (chunk bound 1e-3)
-    and the foresight loss (module bound) per scope."""
-    net, state0, port = _agents("f32")
-    batch, draws = _batch(seed=4), _draws(seed=5)
-    patches, queues = _patched_jax_random(draws, ("noise", "mask"))
-    with patches[0], patches[1]:
-        jm = jax.jit(functools.partial(jagent.validation_step, net))(
-            state0.params, batch, jax.random.PRNGKey(6))
-    assert not any(queues.values())
-    jm = {k: float(v) for k, v in jax.device_get(jm).items()}
-    pm = {k: float(v) for k, v in
-          validation_step(port, batch, draws=_port_draws(draws)).items()}
-    assert sorted(pm) == sorted(jm)
-    for k in jm:
-        rtol = 1e-3 if "act_loss" in k or k == "val_act/action_loss" else 1e-4
-        np.testing.assert_allclose(pm[k], jm[k], rtol=rtol, err_msg=k)
-
-
 def test_state_from_jax_takes_the_third_jax_step():
     """Two JAX steps, the state carried into the port by `state_from_jax`,
     then a third step on each side. The carried moments equal optax's
@@ -260,11 +241,3 @@ def test_state_from_jax_takes_the_third_jax_step():
     for k in ("train/lr", "train/ema_rate"):
         np.testing.assert_allclose(pm[k], jm[k], rtol=1e-6, err_msg=k)
     assert pm["train/ema_rate"] > 0.0 and state.step == 3
-
-
-def test_mdt_has_no_cache_mode():
-    _, _, port = _agents("f32")
-    cache = {"voltron_tokens": torch.zeros(4, 392, 32),
-             "image_latent_goal": torch.zeros(4, 16)}
-    with pytest.raises(ValueError, match="no cache mode"):
-        port.encode_towers(cache, "vis")
