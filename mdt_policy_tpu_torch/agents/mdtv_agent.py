@@ -58,6 +58,7 @@ from ..models.perceiver import PerceiverResampler
 from ..models.voltron_vit import LayerScale, VoltronViT
 from ..ops._build import count_replay, recording_launches
 from ..utils.ema import ema_decay, ema_update
+from ..utils.profiling import count, recording, span
 from ..utils.schedulers import lr_schedule_from_cfg
 from .config import MDTVConfig
 
@@ -279,7 +280,9 @@ class MDTVAgentNet(nn.Module):
         the lang scope; state_obs when the config feeds proprio. draws:
         `make_draws` of this scope. `train`
         turns the denoiser's dropout on (drawn from `draws["dropout"]`).
-        Returns action_loss, img_gen_loss, cont_loss and total_loss."""
+        Returns action_loss, img_gen_loss, cont_loss and total_loss. Under a
+        profile its parts are the spans `net.towers`, `net.denoise`,
+        `net.foresight` and, in the lang scope, `net.contrastive`."""
         c = self.cfg
         actions = batch["actions"].float()
         generator = draws.get("dropout") if train else None
@@ -287,38 +290,42 @@ class MDTVAgentNet(nn.Module):
                                                c.mlp_pdrop, c.embed_pdrob) > 0:
             raise ValueError("train mode needs draws['dropout'], a torch.Generator")
 
-        perceptual_emb, image_latent_goal, latent_goal = self.encode_towers(batch, modality)
-        if c.use_proprio and "state_obs" in batch:
-            perceptual_emb["state_obs"] = batch["state_obs"].float()
+        with span("net.towers"):
+            perceptual_emb, image_latent_goal, latent_goal = self.encode_towers(batch, modality)
+            if c.use_proprio and "state_obs" in batch:
+                perceptual_emb["state_obs"] = batch["state_obs"].float()
 
         # diffusion loss (JAX :312-325)
-        sigmas = self.sample_density(draws["sigma"])
-        c_skip, c_out, c_in = (append_dims(s, actions.ndim)
-                               for s in get_scalings(sigmas, c.sigma_data))
-        noised = actions + draws["noise"] * append_dims(sigmas, actions.ndim)
-        goal_masks = (None, None)
-        if train and c.goal_drop > 0:
-            if "goal_mask" not in draws:
-                raise ValueError("goal_drop > 0 in train mode needs draws['goal_mask']")
-            goal_masks = draws["goal_mask"].unbind(1)
-        context = self.encode_context(perceptual_emb, latent_goal, sigmas,
-                                      modality=modality, generator=generator,
-                                      goal_mask=goal_masks[0])
-        model_out = self.decode_actions(context, noised * c_in, sigmas, generator)
-        target = (actions - c_skip * noised) / c_out
-        action_loss = ((model_out - target) ** 2).mean()
+        with span("net.denoise"):
+            sigmas = self.sample_density(draws["sigma"])
+            c_skip, c_out, c_in = (append_dims(s, actions.ndim)
+                                   for s in get_scalings(sigmas, c.sigma_data))
+            noised = actions + draws["noise"] * append_dims(sigmas, actions.ndim)
+            goal_masks = (None, None)
+            if train and c.goal_drop > 0:
+                if "goal_mask" not in draws:
+                    raise ValueError("goal_drop > 0 in train mode needs draws['goal_mask']")
+                goal_masks = draws["goal_mask"].unbind(1)
+            context = self.encode_context(perceptual_emb, latent_goal, sigmas,
+                                          modality=modality, generator=generator,
+                                          goal_mask=goal_masks[0])
+            model_out = self.decode_actions(context, noised * c_in, sigmas, generator)
+            target = (actions - c_skip * noised) / c_out
+            action_loss = ((model_out - target) ** 2).mean()
 
         # masked generative foresight loss (JAX :327-330)
-        goal_imgs = torch.stack([batch["gen_static"], batch["gen_gripper"]], dim=1)
-        recon, mask, _, _ = self.gen_img(context, goal_imgs, draws["mask"])
-        img_gen_loss = self.gen_img.compute_loss(goal_imgs, recon, mask)
+        with span("net.foresight"):
+            goal_imgs = torch.stack([batch["gen_static"], batch["gen_gripper"]], dim=1)
+            recon, mask, _, _ = self.gen_img(context, goal_imgs, draws["mask"])
+            img_gen_loss = self.gen_img.compute_loss(goal_imgs, recon, mask)
 
         # contrastive latent alignment, lang scope only (JAX :332-340)
         if modality == "lang":
-            vis_context = self.contrastive_context(perceptual_emb, image_latent_goal,
-                                                   sigmas, generator, goal_masks[1])
-            cont_loss = self.clip_auxiliary_loss(self.clip_proj(vis_context),
-                                                 self.clip_proj(context))
+            with span("net.contrastive"):
+                vis_context = self.contrastive_context(perceptual_emb, image_latent_goal,
+                                                       sigmas, generator, goal_masks[1])
+                cont_loss = self.clip_auxiliary_loss(self.clip_proj(vis_context),
+                                                     self.clip_proj(context))
         else:
             cont_loss = actions.new_zeros(())
 
@@ -599,46 +606,63 @@ def train_step(state: TrainState, batch: Mapping[str, Batch], *,
     and before the norm and AdamW, so every rank takes the same step. The
     shards must have equal rows (the averaged means are then the global
     batch's); unequal ones raise. The metrics stay this rank's (the
-    contrastive loss is global): `parallel.reduce_metrics` averages them."""
-    net, opt = state.net, state.optimizer
-    batch = _on_device(batch, net.device)
-    scopes = sorted(batch)
-    rows = {s: batch[s]["actions"].shape[0] for s in scopes}
-    if parallel.is_initialized():
-        for n in sorted(set(rows.values())):
-            parallel.check_equal_rows(n)
-    if draws is None:
-        if generator is None:
-            raise ValueError("train_step needs a generator or the draws")
-        draws = rank_draws(net.cfg, rows, generator)
-    opt.zero_grad(set_to_none=True)
-    metrics: Dict = {}
-    total = 0.0
-    for scope in scopes:
-        out = net(batch[scope], scope, train=True, draws=draws[scope])
-        total = total + out["total_loss"]
-        metrics.update({f"{scope}/{k}": v.detach() for k, v in out.items()})
-    total = total / len(scopes)
-    metrics["train/total_loss"] = total.detach()
-    total.backward()
+    contrastive loss is global): `parallel.reduce_metrics` averages them.
 
-    trainable = net.trainable_parameters()
-    for _, p in trainable:
-        if p.grad is None:  # unused this step: optax still decays it
-            p.grad = torch.zeros_like(p)
-    parallel.all_reduce_gradients(p for _, p in trainable)
-    metrics["train/grad_norm"] = _global_norm(p.grad for _, p in trainable)
-    lr = lr_schedule_from_cfg(net.cfg)(state.step)
-    for group in opt.param_groups:
-        group["lr"] = lr
-    opt.step()
-    metrics["train/param_norm"] = _global_norm(p.detach() for _, p in trainable)
-    metrics["train/lr"] = lr
-    decay = ema_decay(state.step + 1)
-    ema_update(state.ema, trainable, decay)
-    metrics["train/ema_rate"] = decay
-    state.step += 1
-    return metrics
+    Under a profile (`utils/profiling.py`) the step is the span `train.step`
+    (its rid `state.step`): `train.forward` a scope, `train.backward`, and
+    `train.tail` with its parts `train.grad_fill`, `train.all_reduce` (with
+    a process group), `train.grad_norm`, `train.adamw`, `train.param_norm`
+    and `train.ema`. They time the host's issue: the card runs behind it."""
+    with span("train.step", state.step):
+        net, opt = state.net, state.optimizer
+        batch = _on_device(batch, net.device)
+        scopes = sorted(batch)
+        rows = {s: batch[s]["actions"].shape[0] for s in scopes}
+        if parallel.is_initialized():
+            for n in sorted(set(rows.values())):
+                parallel.check_equal_rows(n)
+        if draws is None:
+            if generator is None:
+                raise ValueError("train_step needs a generator or the draws")
+            draws = rank_draws(net.cfg, rows, generator)
+        opt.zero_grad(set_to_none=True)
+        metrics: Dict = {}
+        total = 0.0
+        for scope in scopes:
+            with span("train.forward"):
+                out = net(batch[scope], scope, train=True, draws=draws[scope])
+                total = total + out["total_loss"]
+                metrics.update({f"{scope}/{k}": v.detach() for k, v in out.items()})
+        total = total / len(scopes)
+        metrics["train/total_loss"] = total.detach()
+        with span("train.backward"):
+            total.backward()
+
+        with span("train.tail"):
+            trainable = net.trainable_parameters()
+            with span("train.grad_fill"):
+                for _, p in trainable:
+                    if p.grad is None:  # unused this step: optax still decays it
+                        p.grad = torch.zeros_like(p)
+            if parallel.is_initialized():
+                with span("train.all_reduce"):
+                    parallel.all_reduce_gradients(p for _, p in trainable)
+            with span("train.grad_norm"):
+                metrics["train/grad_norm"] = _global_norm(p.grad for _, p in trainable)
+            lr = lr_schedule_from_cfg(net.cfg)(state.step)
+            for group in opt.param_groups:
+                group["lr"] = lr
+            with span("train.adamw"):
+                opt.step()
+            with span("train.param_norm"):
+                metrics["train/param_norm"] = _global_norm(p.detach() for _, p in trainable)
+            metrics["train/lr"] = lr
+            decay = ema_decay(state.step + 1)
+            with span("train.ema"):
+                ema_update(state.ema, trainable, decay)
+            metrics["train/ema_rate"] = decay
+            state.step += 1
+        return metrics
 
 
 @torch.no_grad()
@@ -736,7 +760,14 @@ class MDTVPolicy:
     count a captured kernel at each replay, where it runs, and not at the
     capture, which runs none. The dpm_adaptive sampler accepts or rejects
     its steps on the host, which a graph cannot replay: its policy runs
-    eagerly (the default), and `cuda_graph=True` raises."""
+    eagerly (the default), and `cuda_graph=True` raises.
+
+    Under a profile (`utils/profiling.py`) a replan is the span
+    `policy.plan`, with the text tower's run `policy.goal_encode` and the
+    graph's `policy.replay` (the inputs' copies into its buffers, the
+    replay, the output's clone) inside it; counters
+    `policy.goal_rows_encoded`, `policy.goal_rows_changed` and
+    `policy.graph_captures`."""
 
     def __init__(self, net: nn.Module,
                  generator: Optional[torch.Generator] = None,
@@ -834,38 +865,55 @@ class MDTVPolicy:
             return predict(*inputs)
         key = (predict.__name__, tuple((tuple(t.shape), t.dtype) for t in inputs))
         if key not in self._graphs:
+            count("policy.graph_captures")
             self._graphs[key] = self._capture(predict, inputs)
         graph, static, out, launched = self._graphs[key]
-        for buf, t in zip(static, inputs):
-            buf.copy_(t)
-        graph.replay()
-        count_replay(launched)
-        return out.clone()  # the next replay overwrites `out`
+        with span("policy.replay"):
+            for buf, t in zip(static, inputs):
+                buf.copy_(t)
+            graph.replay()
+            count_replay(launched)
+            return out.clone()  # the next replay overwrites `out`
 
     @torch.no_grad()
     def plan(self, obs: Dict, goal: Dict) -> torch.Tensor:
         """One replan: the (B, act_window_size, action_dim) chunk for `obs`
         and `goal` (as `step` takes them), the text goal's embedding cached
         across calls for as long as its tokens do not change."""
-        rgb_static = self._tensor(obs["rgb_static"], torch.float32)
-        rgb_gripper = self._tensor(obs["rgb_gripper"], torch.float32)
-        noise = self._draw_noise(rgb_static.shape[0])
-        steps = self._draw_steps(rgb_static.shape[0])
-        if "lang_tokens" in goal:
-            toks = goal["lang_tokens"]
-            toks = toks.cpu().numpy() if torch.is_tensor(toks) else np.asarray(toks)
-            if self._goal_tokens is None or not np.array_equal(toks, self._goal_tokens):
-                self._goal_tokens = toks
-                self._goal_emb = self.net.encode_language_goal(self._tensor(toks))
-            goal_emb = self._goal_emb
-        elif "rgb_static_goal" in goal:
-            image = self._tensor(goal["rgb_static_goal"], torch.float32)
-            return self._run(self._predict_vis, rgb_static, rgb_gripper,
-                             image[None] if image.ndim == 3 else image, noise, *steps)
-        else:
-            goal_emb = torch.atleast_2d(self._tensor(goal["lang"], torch.float32))
-        return self._run(self._predict_emb, rgb_static, rgb_gripper, goal_emb, noise,
-                         *steps)
+        with span("policy.plan"):
+            rgb_static = self._tensor(obs["rgb_static"], torch.float32)
+            rgb_gripper = self._tensor(obs["rgb_gripper"], torch.float32)
+            noise = self._draw_noise(rgb_static.shape[0])
+            steps = self._draw_steps(rgb_static.shape[0])
+            if "lang_tokens" in goal:
+                toks = goal["lang_tokens"]
+                toks = toks.cpu().numpy() if torch.is_tensor(toks) else np.asarray(toks)
+                if self._goal_tokens is None or not np.array_equal(toks, self._goal_tokens):
+                    if recording():
+                        self._count_goal_rows(toks)
+                    with span("policy.goal_encode"):
+                        self._goal_emb = self.net.encode_language_goal(self._tensor(toks))
+                    self._goal_tokens = toks
+                goal_emb = self._goal_emb
+            elif "rgb_static_goal" in goal:
+                image = self._tensor(goal["rgb_static_goal"], torch.float32)
+                return self._run(self._predict_vis, rgb_static, rgb_gripper,
+                                 image[None] if image.ndim == 3 else image, noise, *steps)
+            else:
+                goal_emb = torch.atleast_2d(self._tensor(goal["lang"], torch.float32))
+            return self._run(self._predict_emb, rgb_static, rgb_gripper, goal_emb, noise,
+                             *steps)
+
+    def _count_goal_rows(self, toks: np.ndarray) -> None:
+        """Counters `policy.goal_rows_encoded` (the rows the text tower is
+        given) and `policy.goal_rows_changed` (those whose tokens differ
+        from the cached goal's; all of them when none is cached)."""
+        rows = toks.reshape(-1, toks.shape[-1])
+        old = self._goal_tokens
+        changed = len(rows) if old is None or old.shape != toks.shape else \
+            int((rows != old.reshape(rows.shape)).any(axis=1).sum())
+        count("policy.goal_rows_encoded", len(rows))
+        count("policy.goal_rows_changed", changed)
 
     @torch.no_grad()
     def step(self, obs: Dict, goal: Dict) -> torch.Tensor:

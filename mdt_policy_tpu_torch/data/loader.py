@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..agents.mdtv_agent import default_device
+from ..utils.profiling import span
 from .transforms import add_depth_noise, add_gaussian_noise, preprocess_rgb_eval, \
     preprocess_rgb_train
 
@@ -255,6 +256,11 @@ class DevicePrefetcher:
     a batch's random draws from it draws the same ones at any depth.
     `preloaded` batches, already on the device, are yielded first. An error
     in the thread is raised to the consumer at its next batch.
+
+    Under a profile (`utils/profiling.py`) the consumer's wait is the span
+    `data.next`, and the thread's work a batch `data.copy` (the pinned
+    copies) and `data.preprocess` (`device_fn`), each with the batch's
+    index as its rid.
     """
 
     def __init__(self, raw_iter, device_fn, *, device, depth: int = 2,
@@ -300,7 +306,10 @@ class DevicePrefetcher:
                 for raw in self._iter:
                     if self._stop.is_set():
                         return
-                    out = self._fn(i, self._to_device(raw, pin=cuda))
+                    with span("data.copy", i):
+                        moved = self._to_device(raw, pin=cuda)
+                    with span("data.preprocess", i):
+                        out = self._fn(i, moved)
                     event = None
                     if cuda:
                         event = torch.cuda.Event()
@@ -315,16 +324,17 @@ class DevicePrefetcher:
         return self
 
     def __next__(self):
-        item = self._q.get()
-        if isinstance(item, BaseException):
-            raise item
-        out, event = item
-        if event is not None:
-            consumer = torch.cuda.current_stream(self.device)
-            consumer.wait_event(event)
-            for t in _tensors(out):
-                t.record_stream(consumer)
-        return out
+        with span("data.next"):
+            item = self._q.get()
+            if isinstance(item, BaseException):
+                raise item
+            out, event = item
+            if event is not None:
+                consumer = torch.cuda.current_stream(self.device)
+                consumer.wait_event(event)
+                for t in _tensors(out):
+                    t.record_stream(consumer)
+            return out
 
     def close(self):
         self._stop.set()

@@ -7,10 +7,18 @@ consumes flat, CLIP-normalized frames. `PreprocessingPolicy` bridges the two
 for the serial loop (`evaluation/rollout.py`), `make_batched_predict` for
 the batched one (`evaluation/batched_rollout.py`). Either agent net works:
 `MDTVPolicy` serves both.
+
+Under a profile (`utils/profiling.py`) an env step is the span
+`policy.step` (its rid the replan cycle), an evaluator tick `eval.tick`
+(its rid the tick), each with the raw frames' preprocessing
+(`policy.preprocess`, `eval.preprocess`), the replan (`policy.plan`, on
+the steps that replan) and the action's copy to the host, where the host
+waits on the card (`policy.fetch`, `eval.fetch`).
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
@@ -18,6 +26,7 @@ import torch
 
 from ..agents.mdtv_agent import MDTVPolicy
 from ..data.loader import Preprocessor
+from ..utils.profiling import span
 
 __all__ = ["PreprocessingPolicy", "make_batched_predict", "make_rollout_policy"]
 
@@ -38,25 +47,31 @@ class PreprocessingPolicy:
         # (raw goal frame, processed): holding the raw object pins it, so its
         # identity cannot be recycled
         self._goal_cache = (None, None)
+        self._cycles = 0  # replans so far: the rid of a cycle's spans
 
     def reset(self):
         self.inner.reset()
 
     def step(self, obs: Dict, goal: Dict) -> np.ndarray:
-        batch = self.pp.eval_batch({
-            "rgb_static": obs["rgb_obs"]["rgb_static"],
-            "rgb_gripper": obs["rgb_obs"]["rgb_gripper"],
-        })
-        if "rgb_static_goal" in goal:
-            # the goal is constant for a whole rollout: cache by frame identity
-            raw = goal["rgb_static_goal"]
-            if self._goal_cache[0] is not raw:
-                g = self.pp.eval_batch({"rgb_static": np.asarray(raw)})
-                self._goal_cache = (raw, g["rgb_static"][:, -1])
-            goal = {**goal, "rgb_static_goal": self._goal_cache[1]}
-        action = self.inner.step({"rgb_static": batch["rgb_static"],
-                                  "rgb_gripper": batch["rgb_gripper"]}, goal)
-        return action.cpu().numpy()
+        if self.inner.rollout_step_counter == 0:
+            self._cycles += 1
+        with span("policy.step", self._cycles):
+            with span("policy.preprocess"):
+                batch = self.pp.eval_batch({
+                    "rgb_static": obs["rgb_obs"]["rgb_static"],
+                    "rgb_gripper": obs["rgb_obs"]["rgb_gripper"],
+                })
+                if "rgb_static_goal" in goal:
+                    # the goal is constant for a whole rollout: cache by frame identity
+                    raw = goal["rgb_static_goal"]
+                    if self._goal_cache[0] is not raw:
+                        g = self.pp.eval_batch({"rgb_static": np.asarray(raw)})
+                        self._goal_cache = (raw, g["rgb_static"][:, -1])
+                    goal = {**goal, "rgb_static_goal": self._goal_cache[1]}
+            action = self.inner.step({"rgb_static": batch["rgb_static"],
+                                      "rgb_gripper": batch["rgb_gripper"]}, goal)
+            with span("policy.fetch"):
+                return action.cpu().numpy()
 
 
 def make_rollout_policy(net, *, generator: Optional[torch.Generator] = None
@@ -81,9 +96,15 @@ def make_batched_predict(net, *, generator: Optional[torch.Generator] = None
     `BatchedPolicyAdapter`: one replan of all N envs as one batch through
     `MDTVPolicy.plan`, the text tower once per set of goals."""
     policy, pp = MDTVPolicy(net, generator), _preprocessor(net)
+    ticks = itertools.count()
 
     def predict_batch(obs_batch: Dict[str, np.ndarray], goals: Sequence[Dict]) -> np.ndarray:
-        batch = pp.eval_batch({k: obs_batch[k] for k in ("rgb_static", "rgb_gripper")})
-        return policy.plan(batch, _stack_goals(goals)).cpu().numpy()
+        with span("eval.tick", next(ticks)):
+            with span("eval.preprocess"):
+                batch = pp.eval_batch({k: obs_batch[k] for k in ("rgb_static", "rgb_gripper")})
+                goal = _stack_goals(goals)
+            chunk = policy.plan(batch, goal)
+            with span("eval.fetch"):
+                return chunk.cpu().numpy()
 
     return predict_batch

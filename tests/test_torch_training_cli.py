@@ -115,7 +115,18 @@ def test_synthetic_run_writes_the_run_directory(tmp_path):
     assert not (run / "checkpoints" / "best.json").exists()
     assert sorted(p.name for p in (run / "media").iterdir()) == \
         ["img_gen_pred_step2.png", "img_gen_pred_step4.png"]
-    assert json.loads((run / "profile" / "summary.json").read_text())["wall_ms"] > 0
+    summary = json.loads((run / "profile" / "summary.json").read_text())
+    assert summary["wall_ms"] > 0
+    # the profiled step's spans: its parts' self times under the step's
+    spans = summary["spans"]
+    assert spans["train.step"]["count"] == 1 and spans["train.forward"]["count"] == 2
+    assert spans["train.backward"]["count"] == 1 and spans["train.ema"]["count"] == 1
+    assert spans["net.contrastive"]["count"] == 1 and spans["data.next"]["count"] == 1
+    for s in spans.values():
+        assert 0 <= s["self_ms"] <= s["total_ms"]
+    parts = sum(spans[n]["total_ms"] for n in ("train.forward", "train.backward", "train.tail"))
+    assert parts <= spans["train.step"]["total_ms"]
+    assert summary["counters"] == {}
     assert (run / "profile" / "trace.json").stat().st_size > 0
     # auto-resume: the same run directory restores step 4 and stops there
     again = train(cfg, device="cpu")
