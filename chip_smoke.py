@@ -44,7 +44,12 @@ benchmark and the steps' FLOPs. Prints one JSON line per phase:
               copies whose calls between two uses of one move twice the
               L2's 50 MB), of the kernel, PR 7's body
               (`csrc/baseline/fused_norm_pr7.cu`), the library call and a
-              copy of x, and the cold reading's share of the bound. Then B4 and
+              copy of x, and the cold reading's share of the bound. B6 (the
+              denoiser's few-row blocks) at each of its launches of a B=1
+              replan of both families against its plain version, with the
+              plain version's (the per-op route's) and cuBLAS's (`F.linear`
+              over the same layers) event and device ms, and each launch's
+              count a replan with the sums a replan. Then B4 and
               B5 (the attention and MLP half-blocks) at the extraction's six shapes against
               their plain versions in bf16 and in float64, with the kernel,
               device, plain and unfused route (B3 + F.linear + B1 or the
@@ -58,7 +63,8 @@ benchmark and the steps' FLOPs. Prints one JSON line per phase:
   4. replan   MDT-V: reset() and 20 step() calls at B=1 on the eager policy
               (`cuda_graph=False`); per replan B1 24 then 12, B3 50 then 25,
               B2 44 and 44 (4 encoder blocks + 4 decoder blocks x 10 DDIM
-              steps).
+              steps), B6 266 and 266 (4 a block of the encoder, and at each
+              DDIM step 1 for the decoder's AdaLN and 6 a block).
      graph    30 steps on the graph policy: the same counts per replan (a
               captured kernel counts at each replay, not at the capture);
               the two replays with the goal cached launch those kernels by
@@ -75,8 +81,13 @@ benchmark and the steps' FLOPs. Prints one JSON line per phase:
               µs a replan of B1, B3 LayerNorm, B3 RMSNorm and B2).
   7. b2_ab    MDT-V replan p50/p90 at B=1 and B=32 with B2 and with B2
               swapped alone for `sdpa`, in turns (B2, sdpa, sdpa, B2).
+     b6_ab    the B=1 and B=3 graph replan with B6's route and with the per-op
+              route (captured with the route off), in turns, p50/p90, the
+              actions' gap, device ms and events a replan (after timing, for
+              each family).
   8. replan, e2e, timing  the same three for MDT: B1 12 then 0, B3 25 then
-              0, B2 64 and 64 (4 + 6 x 10) per replan.
+              0, B2 64 and 64 (4 + 6 x 10), B6 386 and 386 (16 + 37 x 10)
+              per replan.
   9. rollout  per family, on the graph policy, `evaluate_policy` over 4
               chains (200 px static, 84 px gripper frames, episodes of 360
               steps) through
@@ -897,6 +908,180 @@ def phase_kernel_b2(torch, device):
     return rows
 
 
+# B6 at a B=1 replan of each family: width, heads, decoder blocks, context
+# tokens (MDT-V: the goal and 3 perceiver latents; MDT: the goal and 2
+# cameras); its bound against the plain version relative to max(1, max|ref|)
+# (f32 sums of up to 2,048 products in another order), and each launch's
+# count a DDIM-10 replan (call: once a denoiser call; block: once a decoder
+# block and call; enc: once an encoder block, 4 in both families)
+B6_FAMILIES = {"mdtv": (384, 8, 4, 4), "mdt": (512, 8, 6, 3)}
+B6_TOL = 1e-5
+B6_USES = {"adaln": "call", "qkv_kv": "block", "proj_gate": "block",
+                 "cross_q": "block", "cross_attend_proj": "block", "fc_gelu": "block",
+                 "mlp_proj_gate": "block", "enc_qkv": "enc", "enc_proj": "enc",
+                 "enc_fc": "enc", "enc_mlp_proj": "enc"}
+B6_ITERS = 200
+
+
+def b6_cases(torch, C, H, L, tk, device, gen):
+    """One of each B6 launch of a B=1 replan at width C (10 action tokens
+    over tk context tokens, the encoder's tk rows), as (name, gemms)."""
+    import torch.nn as nn
+    from mdt_policy_tpu_torch.ops.few_row_linear import Attend, Gemm, Norm
+    draw = lambda *shape: torch.randn(shape, generator=gen, device=device)
+
+    def lin(N, K, bias=True):
+        layer = nn.Linear(K, N, bias=bias, device=device).requires_grad_(False)
+        layer.weight.copy_(draw(N, K) * K ** -0.5)
+        if bias:
+            layer.bias.copy_(draw(N) * 0.1)
+        return layer
+    T = 10
+    x, c, ctx, y, h, e = draw(T, C), draw(1, C), draw(tk, C), draw(T, C), draw(T, 4 * C), \
+        draw(tk, C)
+    mod = draw(1, 6 * C)
+    shift, scale, gate = mod[:, :C], mod[:, C:2 * C], mod[:, 2 * C:3 * C]
+    ln = Norm(1 + 0.1 * draw(C), None, 1e-5, shift, scale)
+    ln3 = Norm(1 + 0.1 * draw(C), 0.1 * draw(C), 1e-6)
+    plain_ln = Norm(ln.weight, None, 1e-5)
+    qkv = lambda: (lin(C, C), lin(C, C), lin(C, C))
+    return [
+        ("adaln", [Gemm(c, (lin(6 * C, C),), "silu") for _ in range(L)]),
+        ("qkv_kv", [Gemm(x, qkv(), ln, per=T), Gemm(ctx, (lin(C, C), lin(C, C)))]),
+        ("proj_gate", [Gemm(y, (lin(C, C, False),), residual=x, gate=gate, per=T)]),
+        ("cross_q", [Gemm(x, (lin(C, C),), ln3)]),
+        ("cross_attend_proj", [Gemm(None, (lin(C, C, False),),
+                                    Attend(y, draw(tk, 2 * C), H, 1, True), residual=x)]),
+        ("fc_gelu", [Gemm(x, (lin(4 * C, C, False),), ln, gelu=True, per=T)]),
+        ("mlp_proj_gate", [Gemm(h, (lin(C, 4 * C, False),), residual=x, gate=gate, per=T)]),
+        ("enc_qkv", [Gemm(e, qkv(), plain_ln)]),
+        ("enc_proj", [Gemm(e, (lin(C, C, False),), residual=e)]),
+        ("enc_fc", [Gemm(e, (lin(4 * C, C, False),), plain_ln, gelu=True)]),
+        ("enc_mlp_proj", [Gemm(draw(tk, 4 * C), (lin(C, 4 * C, False),), residual=e)])]
+
+
+def b6_bytes_flops(gemms):
+    """Bytes each B6 launch must move (weights, biases, input rows and their
+    norm and modulation rows, outputs, residuals and gates, each once) and
+    its FLOPs (2 M N K, and the attention's 4 M tk C)."""
+    n_bytes, flops = 0, 0
+    for g in gemms:
+        pro = g.prologue
+        x = pro.q if g.x is None else g.x
+        M, K = x.shape
+        N = sum(layer.weight.shape[0] for layer in g.layers)
+        n_bytes += 4 * (N * K + M * K + M * N)
+        n_bytes += sum(4 * layer.bias.numel() for layer in g.layers if layer.bias is not None)
+        for t in (g.residual, g.gate, getattr(pro, "kv", None), getattr(pro, "shift", None),
+                  getattr(pro, "scale", None), getattr(pro, "weight", None),
+                  getattr(pro, "bias", None)):
+            n_bytes += 0 if t is None else 4 * t.numel()
+        flops += 2 * M * N * K
+        if g.x is None:
+            flops += 4 * M * (pro.kv.shape[0] // pro.batch) * K
+    return n_bytes, flops
+
+
+def phase_kernel_b6(torch, device):
+    """B6 at each of its launches of a B=1 replan of both families
+    (`b6_cases`) against its plain version, with the CUDA-event ms of the
+    kernel, of the plain version (the per-op route: the norm, modulation,
+    GEMM, activation and residual operators the blocks ran before) and of
+    cuBLAS alone over the same layers (`F.linear`), each one's device ms
+    from the profiler, the wrapper's host µs a call, the bound, and the
+    launch's count a replan."""
+    import torch.nn.functional as F
+    from mdt_policy_tpu_torch.ops.few_row_linear import few_row_linear, few_row_linear_reference
+    gen = torch.Generator(device).manual_seed(6)
+    rows = []
+    for family, (C, H, L, tk) in B6_FAMILIES.items():
+        per_use = {"call": 10, "block": 10 * L, "enc": 4}
+        with torch.no_grad():
+            for name, gemms in b6_cases(torch, C, H, L, tk, device, gen):
+                kernel = lambda: few_row_linear(*gemms)
+                plain = lambda: few_row_linear_reference(*gemms)
+                library = lambda: [F.linear(g.x if g.x is not None else g.prologue.q,
+                                            layer.weight, layer.bias)
+                                   for g in gemms for layer in g.layers]
+                before = few_row_linear.launches
+                outs = kernel()
+                torch.cuda.synchronize()
+                launched = few_row_linear.launches - before
+                refs = plain()
+                err = max((o - r).abs().max().item() for o, r in zip(outs, refs))
+                bound = B6_TOL * max(1.0, max(r.abs().max().item() for r in refs))
+                n_bytes, flops = b6_bytes_flops(gemms)
+                bms, by = bound_ms(n_bytes, flops, "float32")
+                g0 = gemms[0]
+                row = {"phase": "kernel", "kernel": "few_row_linear", "family": family,
+                       "shape": f"{family}_{name}", "dtype": "float32",
+                       "rows": [(g.x if g.x is not None else g.prologue.q).shape[0]
+                                for g in gemms],
+                       "k": (g0.x if g0.x is not None else g0.prologue.q).shape[1],
+                       "n": [sum(layer.weight.shape[0] for layer in g.layers) for g in gemms],
+                       "max_abs_err": err, "bound": bound,
+                       "ms": event_ms(kernel, B6_ITERS, torch),
+                       "host_us": host_us(kernel, torch),
+                       "device_ms": next(filter(None, (
+                           device_ms(kernel, "few_row_linear_kernel", 20, torch)
+                           for _ in range(PROFILE_TRIES))), None),
+                       "plain_ms": event_ms(plain, B6_ITERS, torch),
+                       "plain_device_ms": call_device_ms(plain, 20, torch),
+                       "library_ms": event_ms(library, B6_ITERS, torch),
+                       "library_device_ms": call_device_ms(library, 20, torch),
+                       "bound_ms": bms, "bound_by": by, "launches_per_call": launched,
+                       "per_replan": per_use[B6_USES[name]]}
+                emit(row)
+                if not (err <= bound and launched == 1):
+                    raise AssertionError(f"B6 disagrees with its plain version: {row}")
+                rows.append(row)
+    for family in B6_FAMILIES:
+        mine = [r for r in rows if r["family"] == family]
+        emit({"phase": "kernel_b6_replan", "family": family,
+              "launches": sum(r["per_replan"] for r in mine),
+              **{f"{k}_per_replan": sum(r["per_replan"] * (r[k] or 0.0) for r in mine)
+                 for k in ("device_ms", "plain_device_ms", "library_device_ms")}})
+    return rows
+
+
+def phase_b6_ab(torch, net, device, smi, family: str, batch: int = 1):
+    """The graph replan at `batch` envs with B6's route and with the per-op
+    route (the graph captured under a patch that turns the route off), in
+    turns (B6, per-op, per-op, B6) of REPLANS_TIMED replans each, from one
+    seed: the two actions' largest relative gap, p50/p90, and 5 replans of
+    each under the profiler (device ms and events a replan, the costliest
+    kernels)."""
+    from mdt_policy_tpu_torch.models import blocks
+    from mdt_policy_tpu_torch.ops.few_row_linear import few_row_linear
+    with mock.patch.object(blocks, "_few_rows", lambda *a, **k: False):
+        per_op, _, _ = replanner(torch, net, batch, device, seed=24)
+    b6, _, _ = replanner(torch, net, batch, device, seed=24)
+    gaps = []
+    for _ in range(3):
+        a, b = per_op(), b6()
+        gaps.append(((a - b).abs().max() / a.abs().max()).item())
+    before = few_row_linear.launches
+    b6()
+    per_replan = few_row_linear.launches - before
+    routes = {"b6": b6, "per_op": per_op}
+    times = {"b6": [], "per_op": []}
+    for route in ("b6", "per_op", "per_op", "b6"):
+        times[route] += event_times(torch, routes[route], REPLANS_TIMED)
+    prof = {r: profile_calls(torch, fn, 5) for r, fn in routes.items()}
+    row = {"phase": "b6_ab", "family": family, "batch": batch,
+           "replans_per_route": len(times["b6"]), "action_rel_gap": gaps,
+           "b6_launches_per_replan": per_replan,
+           **{f"replan_ms_p50_{r}": float(np.percentile(t, 50)) for r, t in times.items()},
+           **{f"replan_ms_p90_{r}": float(np.percentile(t, 90)) for r, t in times.items()},
+           **{f"device_ms_per_replan_{r}": p["device_ms_per_call"] for r, p in prof.items()},
+           **{f"device_events_per_replan_{r}": p["device_events_per_call"]
+              for r, p in prof.items()},
+           "top_kernels_b6": prof["b6"]["top_kernels_ms_per_call"],
+           "top_kernels_per_op": prof["per_op"]["top_kernels_ms_per_call"], "card": smi}
+    emit(row)
+    return row
+
+
 def phase_kernel_b2_edges(torch, device):
     """B2 against its plain version at SMALL_SEQ_EDGES in f32 and bf16, and
     the f32 kernel against the plain version in float64."""
@@ -1030,6 +1215,7 @@ class Launches:
 
     def __init__(self):
         from mdt_policy_tpu_torch.ops.attention_halfblock import attention_halfblock
+        from mdt_policy_tpu_torch.ops.few_row_linear import few_row_linear
         from mdt_policy_tpu_torch.ops.fused_norm import fused_layer_norm, fused_rms_norm
         from mdt_policy_tpu_torch.ops.fused_qkv_attention import fused_qkv_attention
         from mdt_policy_tpu_torch.ops.mlp_halfblock import mlp_halfblock
@@ -1042,6 +1228,7 @@ class Launches:
                     "attention_halfblock": attention_halfblock,
                     "mlp_halfblock": mlp_halfblock,
                     "small_seq_mha": small_seq_mha,
+                    "few_row_linear": few_row_linear,
                     "attn_pair_grid": pair_grid_attention,
                     "attn_pair_v3": pair_attention}
 
@@ -1065,19 +1252,39 @@ def b2_per_replan(cfg, evaluations=None):
     return cfg.n_enc_layers * (1 if hoists_context(cfg) else calls) + cfg.n_dec_layers * calls
 
 
-def expected_replan_launches(cfg, family: str):
+def b6_per_replan(cfg, evaluations=None):
+    """B6 launches of one B=1 replan (the few-row route of the f32
+    denoiser): 4 an encoder block (where the config hoists the context once,
+    else at every denoiser call), and at each denoiser call one for the
+    AdaLN decoder's modulations and 6 a block, or 6 a block of the
+    sigma-token decoder; the noise-encoder decoder and a bf16 denoiser keep
+    the per-op path. No B6 at B=32 (320 decoder rows)."""
+    from mdt_policy_tpu_torch.agents.mdtv_agent import hoists_context, sampling_schedule
+    from mdt_policy_tpu_torch.diffusion.samplers import denoiser_evaluations
+    if cfg.denoiser_compute_dtype != "float32":
+        return 0
+    calls = evaluations if evaluations is not None else \
+        denoiser_evaluations(cfg.sampler_type, sampling_schedule(cfg))
+    decoder = 6 * cfg.n_dec_layers + 1 if not cfg.use_noise_encoder else 0
+    if not cfg.use_ada_conditioning:
+        decoder = 6 * cfg.n_dec_layers
+    return 4 * cfg.n_enc_layers * (1 if hoists_context(cfg) else calls) + decoder * calls
+
+
+def expected_replan_launches(cfg, family: str, batch: int = 1):
     """Launches of the first replan (the text goal encoded) and of a later
-    one (the goal cached). B1 one per Voltron block (MDT-V) and per causal
-    text block; B3 two RMSNorms per Voltron block and its encoder_norm
-    (MDT-V), two LayerNorms per text block and ln_final; B2 at every
-    self-attention of the denoiser. MDT's ResNets and GroupNorms run no
-    kernel of the port."""
+    one (the goal cached) at `batch` envs. B1 one per Voltron block (MDT-V)
+    and per causal text block; B3 two RMSNorms per Voltron block and its
+    encoder_norm (MDT-V), two LayerNorms per text block and ln_final; B2 at
+    every self-attention of the denoiser; B6 `b6_per_replan` at B=1. MDT's
+    ResNets and GroupNorms run no kernel of the port."""
     camera = {"fused_qkv_attention": cfg.vit_depth, "fused_layer_norm": 1,
               "fused_rms_norm": 2 * cfg.vit_depth} if family == "mdtv" else \
         {"fused_qkv_attention": 0, "fused_layer_norm": 0, "fused_rms_norm": 0}
     text = {"fused_qkv_attention": cfg.clip_text_layers,
             "fused_layer_norm": 2 * cfg.clip_text_layers + 1, "fused_rms_norm": 0}
-    rest = {**NO_HALFBLOCKS, **NO_VARIANTS, "small_seq_mha": b2_per_replan(cfg)}
+    rest = {**NO_HALFBLOCKS, **NO_VARIANTS, "small_seq_mha": b2_per_replan(cfg),
+            "few_row_linear": b6_per_replan(cfg) if batch == 1 else 0}
     return [{**{k: camera[k] + text[k] for k in camera}, **rest}, {**camera, **rest}]
 
 
@@ -1110,6 +1317,7 @@ def phase_replan(torch, net, device, launches: Launches, family: str):
           "launches_per_replan": per_replan, "expected_per_replan": expected,
           "b1_per_replan": [r["fused_qkv_attention"] for r in per_replan],
           "b3_per_replan": b3, "b2_per_replan": [r["small_seq_mha"] for r in per_replan],
+          "b6_per_replan": [r["few_row_linear"] for r in per_replan],
           "launches": total, "actions_finite_and_shaped": ok,
           "first_action": actions[0].tolist()})
     if not ok:
@@ -1120,19 +1328,21 @@ def phase_replan(torch, net, device, launches: Launches, family: str):
 
 
 NO_HALFBLOCKS = {"attention_halfblock": 0, "mlp_halfblock": 0}
-NO_DENOISER = {"small_seq_mha": 0}
+NO_DENOISER = {"small_seq_mha": 0, "few_row_linear": 0}
 NO_VARIANTS = {"attn_pair_grid": 0, "attn_pair_v3": 0}  # the microbench's kernels only
 
 
 def plain_kernels():
     """Patches every kernel call site with the kernel's plain version."""
     from mdt_policy_tpu_torch.models import blocks, clip, voltron_vit
+    from mdt_policy_tpu_torch.ops.few_row_linear import few_row_linear_reference
     from mdt_policy_tpu_torch.ops.fused_norm import (fused_layer_norm_reference,
                                                      fused_rms_norm_reference)
     from mdt_policy_tpu_torch.ops.fused_qkv_attention import (
         fused_qkv_attention_reference)
     from mdt_policy_tpu_torch.ops.small_seq_mha import small_seq_mha_reference
     patches = [mock.patch.object(blocks, "small_seq_mha", small_seq_mha_reference),
+               mock.patch.object(blocks, "few_row_linear", few_row_linear_reference),
                mock.patch.object(voltron_vit, "fused_qkv_attention",
                                  fused_qkv_attention_reference),
                mock.patch.object(clip, "fused_qkv_attention",
@@ -1264,12 +1474,13 @@ def phase_timing(torch, net, device, smi, family: str):
 
 
 # the replan's kernels by device kernel name: B1, B3 LayerNorm (`kRms`, its
-# first template argument, false), B3 RMSNorm (true), B2
+# first template argument, false), B3 RMSNorm (true), B2, B6
 REPLAY_KERNELS = {
     "fused_qkv_attention": lambda n: "fused_qkv_attention_kernel" in n,
     "fused_layer_norm": lambda n: "fused_norm_kernel<false" in n,
     "fused_rms_norm": lambda n: "fused_norm_kernel<true" in n,
-    "small_seq_mha": lambda n: "small_seq_mha_kernel" in n}
+    "small_seq_mha": lambda n: "small_seq_mha_kernel" in n,
+    "few_row_linear": lambda n: "few_row_linear_kernel" in n}
 
 
 def replay_counts(torch, prof):
@@ -1494,10 +1705,14 @@ def phase_samplers(torch, net, device, launches: Launches, smi):
                                         generator=torch.Generator(device).manual_seed(63))
                         per_call = _diff(before, launches.read())
                     calls = stats["evaluations"]
-                    b2_ok = per_call["small_seq_mha"] == b2_per_replan(cfg, calls)
+                    b2_ok = per_call["small_seq_mha"] == b2_per_replan(cfg, calls) and \
+                        per_call["few_row_linear"] == (b6_per_replan(cfg, calls)
+                                                       if batch == 1 else 0)
                 else:
                     calls = denoiser_evaluations(name, sampling_schedule(cfg))
-                    b2_ok = per_replan["small_seq_mha"] == b2_per_replan(cfg)
+                    b2_ok = per_replan["small_seq_mha"] == b2_per_replan(cfg) and \
+                        per_replan["few_row_linear"] == (b6_per_replan(cfg) if batch == 1
+                                                         else 0)
                 times = event_times(torch, plan, SAMPLER_REPLANS)
                 _add(total, launches.read())
                 ref = chunks["plain"]
@@ -1506,6 +1721,8 @@ def phase_samplers(torch, net, device, launches: Launches, smi):
                        "route": "eager" if adaptive else "graph",
                        "denoiser_calls": calls, "b2_per_replan": per_replan["small_seq_mha"],
                        "b2_expected": b2_per_replan(cfg, calls if adaptive else None),
+                       "b6_expected": b6_per_replan(cfg, calls if adaptive else None)
+                       if batch == 1 else 0,
                        "b2_ok": b2_ok, "launches_per_replan": per_replan,
                        "max_abs_err_kernel_vs_plain": err,
                        "bound": E2E_REL_TOL * max(1.0, ref.abs().max().item()),
@@ -1617,12 +1834,12 @@ def phase_configs(torch, device, launches: Launches, smi, base_nets):
                 row[f"goal_image_launches_b{batch}"] = _diff(before, launches.read())
                 row[f"goal_image_finite_b{batch}"] = bool(torch.isfinite(vis).all())
             del policy, chunks
-        expected = expected_replan_launches(cfg, family)[1]
+        expected = {b: expected_replan_launches(cfg, family, b)[1] for b in (1, 32)}
         row["expected_per_replan"] = expected
-        ok = row["launches_b1"] == row["launches_b32"] == expected \
+        ok = all(row[f"launches_b{b}"] == expected[b] for b in (1, 32)) \
             and row["finite_b1"] and row["finite_b32"] and row["graph_equals_eager"]
         if case == "resnet_goal":
-            ok = ok and all(row[f"goal_image_launches_b{b}"] == expected
+            ok = ok and all(row[f"goal_image_launches_b{b}"] == expected[b]
                             and row[f"goal_image_finite_b{b}"] for b in (1, 32))
             gen = torch.Generator(device).manual_seed(72)
             for b in TOWER_BATCHES:
@@ -1826,13 +2043,18 @@ def phase_rollout(torch, nets, device, launches: Launches, smi):
         got = {k: after[k] - before[k] for k in after}
         runs = sum(plans) + len(calls) + MDTVPolicy.WARMUP_CALLS * captures.call_count
         per_run = expected_replan_launches(cfg, family)[1]
+        # B6 runs at the serial loop's B=1 replans alone (its own captures')
+        serial_runs = sum(plans) + MDTVPolicy.WARMUP_CALLS * sum(
+            c.args[0] is policy.inner for c in captures.call_args_list)
         counts = {"phase": "rollout", "family": family, "loop": "launches",
                   "launches": got, "captures": captures.call_count,
-                  "replan_runs": runs, "per_replan_run": per_run}
+                  "replan_runs": runs, "serial_replan_runs": serial_runs,
+                  "per_replan_run": per_run}
         emit(counts)
         exact = ("small_seq_mha", "fused_rms_norm")
         if any(got[k] != runs * per_run[k] for k in exact) or any(
-                got[k] < runs * per_run[k] for k in per_run):
+                got[k] < runs * per_run[k] for k in per_run if k != "few_row_linear") or \
+                got["few_row_linear"] != serial_runs * per_run["few_row_linear"]:
             raise AssertionError(f"{family} rollout launches disagree with its replans: "
                                  f"{counts}")
         rows += [serial, batched]
@@ -2065,6 +2287,7 @@ def profile_calls(torch, fn, n: int, host_top: int = 0):
             "b3_share": share("fused_norm_kernel"),
             "b4_b5_share": share("halfblock_"),
             "b2_share": share("small_seq_mha_kernel"),
+            "b6_share": share("few_row_linear_kernel"),
             # the replan's kernels' device µs a call, by name
             "replay_kernels_us_per_call": {
                 k: sum(v for name, v in by_name.items() if match(name)) * 1e3 / n
@@ -3274,7 +3497,8 @@ def phase_train_rollout(torch, device, launches: Launches, smi, root):
              + runs * per_run["small_seq_mha"],
              "fused_rms_norm": sum(c["fused_rms_norm"] for c in calls["train_step"])
              + sum(c["fused_rms_norm"] for c in calls["validation_step"])
-             + runs * per_run["fused_rms_norm"]}
+             + runs * per_run["fused_rms_norm"],
+             "few_row_linear": runs * per_run["few_row_linear"]}
     row = {"phase": "train_rollout", "family": "mdtv", "batch_per_stream": TRAIN_BATCH,
            "epochs": TRAIN_ROLLOUT_EPOCHS, "steps_per_epoch": CLI_STEPS_PER_EPOCH,
            "chains": ROLLOUT_CHAINS, "ep_len": ROLLOUT_EP_LEN, "never_solves": never,
@@ -3874,7 +4098,7 @@ def phase_misc_modules(torch, device, launches: Launches, smi):
                      "finite": all(bool(torch.isfinite(o).all()) for o in outs),
                      "launches": {k: after[k] - before[k] for k in
                                   ("fused_qkv_attention", "small_seq_mha", "fused_layer_norm",
-                                   "fused_rms_norm") if after[k] > before[k]}})
+                                   "fused_rms_norm", "few_row_linear") if after[k] > before[k]}})
         del module, out, ref
     total = launches.read()
     probe = torch.ones(1)
@@ -3994,6 +4218,7 @@ def main() -> int:
     phase_build()
     rows = {"b1": phase_kernel_b1(torch, device), "b3": phase_kernel_b3(torch, device),
             "b2": phase_kernel_b2(torch, device) + phase_kernel_b2_edges(torch, device),
+            "b6": phase_kernel_b6(torch, device),
             "hb": phase_kernel_halfblocks(torch, device)}
     launches = Launches()
     rows["var"], variant_launches = phase_attn_variants(torch, device, launches, smi)
@@ -4004,11 +4229,15 @@ def main() -> int:
     phase_e2e(torch, net, device, launches, "mdtv")
     phase_timing(torch, net, device, smi, "mdtv")
     phase_b2_ab(torch, net, device, smi)
+    for batch in (1, 3):  # 10 and 30 rows: B6's route from its fewest rows to near MAX_ROWS
+        phase_b6_ab(torch, net, device, smi, "mdtv", batch)
     mdt = build_net(torch, MDTConfig(), device)
     paths["mdt_replan"] = phase_replan(torch, mdt, device, launches, "mdt")
     phase_graph(torch, mdt, device, launches, smi, "mdt")
     phase_e2e(torch, mdt, device, launches, "mdt")
     phase_timing(torch, mdt, device, smi, "mdt")
+    for batch in (1, 3):
+        phase_b6_ab(torch, mdt, device, smi, "mdt", batch)
     paths["samplers"], _ = phase_samplers(torch, net, device, launches, smi)
     paths["configs"], paths["configs_bf16"], _ = phase_configs(
         torch, device, launches, smi, {"mdtv": net, "mdt": mdt})
@@ -4103,6 +4332,9 @@ def summary(rows, paths):
             ("small_seq_mha", "small_seq_mha.cu",
              "mdt_policy_tpu/ops/pallas_attention.py:77", "b2", "mdtv_dec_b32", "float32",
              replans + ("mdt_validation", "extract_cli", "configs_bf16", "misc_modules")),
+            ("few_row_linear", "few_row_linear.cu", "none (XLA's dense layers)", "b6",
+             "mdtv_qkv_kv", "float32", ("replan", "mdt_replan", "rollout", "evaluate_cli",
+                                        "train_rollout", "video", "samplers", "configs")),
             ("attention_halfblock", "attention_halfblock.cu",
              "mdt_policy_tpu/ops/attention_halfblock.py:145", "hb", "voltron", "bfloat16",
              ("extract", "extract_cli")),

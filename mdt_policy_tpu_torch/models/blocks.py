@@ -26,6 +26,18 @@ and the float32 residual stream re-promotes at every residual add. Dropout
 (attention probabilities, residual, MLP) runs when a `torch.Generator` is
 passed, which the train step does; without one, as in the replan, it is
 off.
+
+Where autograd records nothing (the replan, under `no_grad`), `Block` and
+`ConditionedBlock` in float32 over at most `MAX_ROWS` rows (B x T) of at
+most `MAX_WIDTH` channels, without a mask or a dropout generator, take the
+few-row route (`_few_rows`): kernel B6 (`ops/few_row_linear.py`) runs each
+norm, modulation, GEMM, activation, gate and residual of the block in one
+launch per group of layers, the cross-attention inside its output
+projection's launch, and B2 the self-attention: 6 launches a decoder block,
+4 an encoder block, and one for the AdaLN modulations of a block or of a
+whole `TransformerFiLMDecoder`. On the CPU B6's plain version computes with
+the per-op path's operators.
+Everything else keeps the per-op path.
 """
 
 from __future__ import annotations
@@ -37,8 +49,11 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch._C._functorch import is_functorch_wrapped_tensor
 
 from ..ops.attention import dropout, sdpa
+from ..ops.few_row_linear import (MAX_ROWS, MAX_WIDTH, Attend, Gemm, Norm, attention_fits,
+                                  few_row_linear)
 from ..ops.fused_norm import fused_layer_norm, fused_rms_norm
 from ..ops.small_seq_mha import MAX_DIM, MAX_SEQ, small_seq_mha
 from .position_embeddings import RotaryEmbedding
@@ -237,6 +252,10 @@ class Block(nn.Module):
         self.mlp = MLP(n_embd, mlp_pdrop, dtype, bias)
 
     def forward(self, x, context=None, generator=None, custom_attn_mask=None):
+        if _few_rows(self, x, context, generator, custom_attn_mask):
+            B, T, C = x.shape
+            rows = _attention_rows(self, x.reshape(B * T, C), B, context, _norm(self.ln_1))
+            return _mlp_rows(self.mlp, rows, _norm(self.ln_2)).reshape(B, T, C)
         x = x + self.attn(self.ln_1(x), generator=generator,
                           custom_attn_mask=custom_attn_mask)
         if context is not None and hasattr(self, "cross_att"):
@@ -309,6 +328,9 @@ class ConditionedBlock(nn.Module):
         self.adaLN_zero = AdaLNZero(cond_dim, cond_dim)
 
     def forward(self, x, c, context=None, generator=None, custom_attn_mask=None):
+        if _few_rows(self, x, context, generator, custom_attn_mask, c):
+            mod, = few_row_linear(self.modulation_gemm(c))
+            return self.few_rows(x, mod, context)
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = \
             self.adaLN_zero(c)
         x = x + gate_msa * self.attn(modulate(self.ln_1(x), shift_msa, scale_msa),
@@ -318,6 +340,83 @@ class ConditionedBlock(nn.Module):
             x = x + self.cross_att(self.ln3(x), context, generator, custom_attn_mask)
         return x + gate_mlp * self.mlp(modulate(self.ln_2(x), shift_mlp, scale_mlp),
                                        generator)
+
+    def modulation_gemm(self, c: torch.Tensor) -> Gemm:
+        """The AdaLN modulation of `c` (B, Tc, cond) as a B6 gemm: (B Tc, 6C)."""
+        return Gemm(c.reshape(-1, c.shape[-1]), (self.adaLN_zero.modulation[1],), "silu")
+
+    def few_rows(self, x: torch.Tensor, mod: torch.Tensor,
+                 context: Optional[torch.Tensor]) -> torch.Tensor:
+        """The block on the few-row route, given its modulation rows `mod`
+        (`modulation_gemm`'s output)."""
+        B, T, C = x.shape
+        per = B * T // mod.shape[0]
+        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
+        rows = _attention_rows(self, x.reshape(B * T, C), B, context,
+                               _norm(self.ln_1, shift_msa, scale_msa), gate_msa, per)
+        return _mlp_rows(self.mlp, rows, _norm(self.ln_2, shift_mlp, scale_mlp), gate_mlp,
+                         per).reshape(B, T, C)
+
+
+def _few_rows(block, x, context, generator, custom_attn_mask, c=None) -> bool:
+    """Whether `block` (a `Block` or a `ConditionedBlock`) takes the few-row
+    route: autograd off, float32, at most `MAX_ROWS` rows of at most
+    `MAX_WIDTH` channels (B6's limits), no mask, no
+    dropout generator, no `torch.func` transform, self-attention within
+    B2's reach, no rotary embedding; with cross-attention, the context within
+    B6's attention prologue; with a conditioning `c`, one row a sequence or
+    a token."""
+    B, T, C = x.shape
+    attn = block.attn
+    if torch.is_grad_enabled() or generator is not None or custom_attn_mask is not None \
+            or B * T > MAX_ROWS or attn.dtype not in (None, torch.float32) or C % 4 \
+            or C > MAX_WIDTH or C // attn.n_head > MAX_DIM or attn.rotary is not None:
+        return False
+    inputs = [t for t in (x, context, c) if t is not None]
+    if any(t.dtype != torch.float32 or is_functorch_wrapped_tensor(t) for t in inputs):
+        return False
+    if c is not None and (c.dim() != 3 or c.shape[0] != B or c.shape[1] not in (1, T)
+                          or c.shape[-1] % 4):
+        return False
+    if context is not None and hasattr(block, "cross_att"):
+        ca = block.cross_att
+        if ca.rotary is not None or context.dim() != 3 or context.shape[0] != B or \
+                not attention_fits(B * T, C, B * context.shape[1], ca.n_head):
+            return False
+    return True
+
+
+def _norm(ln: LayerNorm, shift=None, scale=None) -> Norm:
+    return Norm(ln.weight, ln.bias, ln.eps, shift, scale)
+
+
+def _attention_rows(block, rows, B, context, norm, gate=None, per=1):
+    """rows + [gate *] attn(norm(rows)), then, with a context and
+    cross-attention, + cross_att(ln3(.), context), on B6 and B2: (B T, C)
+    rows in and out. The context's keys and values share the first launch."""
+    attn, C = block.attn, rows.shape[1]
+    T = rows.shape[0] // B
+    cross = block.cross_att if context is not None and hasattr(block, "cross_att") else None
+    gemms = [Gemm(rows, (attn.query, attn.key, attn.value), norm, per=per)]
+    if cross is not None:
+        gemms.append(Gemm(context.reshape(-1, C), (cross.key, cross.value)))
+    qkv, *kv = few_row_linear(*gemms)
+    q, k, v = (t.reshape(B, T, attn.n_head, -1).transpose(1, 2) for t in qkv.split(C, dim=1))
+    y = small_seq_mha(q, k, v, causal=attn.causal).transpose(1, 2).reshape(B * T, C)
+    rows, = few_row_linear(Gemm(y, (attn.c_proj,), residual=rows, gate=gate, per=per))
+    if cross is None:
+        return rows
+    q, = few_row_linear(Gemm(rows, (cross.query,), _norm(block.ln3)))
+    rows, = few_row_linear(Gemm(None, (cross.c_proj,), Attend(q, kv[0], cross.n_head, B,
+                                                               cross.causal), residual=rows))
+    return rows
+
+
+def _mlp_rows(mlp, rows, norm, gate=None, per=1):
+    """rows + [gate *] mlp(norm(rows)) on B6: two launches."""
+    h, = few_row_linear(Gemm(rows, (mlp.c_fc,), norm, gelu=True, per=per))
+    rows, = few_row_linear(Gemm(h, (mlp.c_proj,), residual=rows, gate=gate, per=per))
+    return rows
 
 
 class NoiseBlock(nn.Module):
@@ -413,7 +512,15 @@ class TransformerFiLMDecoder(_Stack):
                           for _ in range(n_layers)), embed_dim, bias)
 
     def forward(self, x, c, context=None, generator=None, custom_attn_mask=None):
-        for block in self.blocks:
+        blocks = self.blocks
+        if isinstance(blocks[0], ConditionedBlock) and \
+                _few_rows(blocks[0], x, context, generator, custom_attn_mask, c):
+            # the blocks' AdaLN linears all read c: their modulations in one launch
+            mods = few_row_linear(*(block.modulation_gemm(c) for block in blocks))
+            for block, mod in zip(blocks, mods):
+                x = block.few_rows(x, mod, context)
+            return self.ln(x)
+        for block in blocks:
             x = block(x, c, context, generator, custom_attn_mask)
         return self.ln(x)
 

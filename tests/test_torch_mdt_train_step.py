@@ -11,6 +11,7 @@ noise) patched to numpy arrays that the port gets as its `draws`. Dropout
 is 0 for parity. The bounds are those of the MDT-V step's test.
 """
 
+import copy
 import functools
 
 import jax
@@ -40,10 +41,18 @@ TINY = dict(
 FROZEN = ("visual_goal", "language_goal")
 
 
-@functools.cache
 def _agents(dtypes):
     """The JAX net and state from `init_mdt_agent`, and the port's net with
-    the same parameters. The bf16 state is the f32 one with its frozen
+    the same parameters, a copy of its own for each caller: tests step it in
+    place, and the files that import this helper (the validation step's
+    among them) may run after them in the same process."""
+    net, state0, port = _built_agents(dtypes)
+    return net, state0, copy.deepcopy(port)
+
+
+@functools.cache
+def _built_agents(dtypes):
+    """`_agents`, built once. The bf16 state is the f32 one with its frozen
     towers cast, which is what `init_mdt_agent` stores for them."""
     if dtypes == "f32":
         net, state0 = init_mdt_agent(JaxMDTConfig(**TINY, **DTYPES[dtypes]),
